@@ -1,0 +1,565 @@
+"""Compressive encodings.
+
+The paper (sec. 2.2) splits codecs into **transparent** (a single value can be
+sliced out of the compressed buffer given its position/length: bit-packing,
+FSST, dictionary, per-value LZ4) and **opaque** (values depend on each other:
+delta encodings, block compressors).  The structural encodings constrain which
+family is usable: full-zip requires transparent codecs; mini-block and
+parquet-like pages may use opaque codecs because a whole chunk is always
+decoded.
+
+All codecs work on host numpy arrays (encode runs in the writer / input
+pipeline).  Decode paths used on the accelerator have CUDA twins in
+``repro_torch.kernels`` validated against these implementations.
+
+zstd (installed) stands in for the paper's LZ4/Snappy class of
+general-purpose byte codecs -- recorded in DESIGN.md §8.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+try:
+    import zstandard as _zstd
+
+    _ZSTD_C = _zstd.ZstdCompressor(level=1)
+    _ZSTD_D = _zstd.ZstdDecompressor()
+except Exception:
+    # no zstandard on this interpreter: stdlib zlib stands in (same opaque
+    # block-compressor class; only the ratio/speed constants differ)
+    import zlib as _zlib
+
+    _zstd = None
+
+    class _ZlibCompressor:
+        def compress(self, b: bytes) -> bytes:
+            return _zlib.compress(b, 1)
+
+    class _ZlibDecompressor:
+        def decompress(self, b: bytes) -> bytes:
+            return _zlib.decompress(b)
+
+    _ZSTD_C = _ZlibCompressor()
+    _ZSTD_D = _ZlibDecompressor()
+
+__all__ = [
+    "Encoded",
+    "bitpack",
+    "bitunpack",
+    "min_bits",
+    "FIXED_CODECS",
+    "BYTES_CODECS",
+    "FixedCodec",
+    "BytesCodec",
+    "get_fixed_codec",
+    "get_bytes_codec",
+]
+
+
+@dataclasses.dataclass
+class Encoded:
+    """A compressed buffer plus the (small) metadata needed to decode it.
+
+    ``meta`` travels in the column metadata / search cache, never inline in
+    the data stream, mirroring the paper's recommendation that dictionaries
+    and symbol tables live in the search cache (sec. 6.1.1).
+    """
+
+    data: np.ndarray  # uint8
+    meta: Dict
+    # per-value byte lengths AFTER compression; only set by transparent
+    # bytes codecs (needed by full-zip to zip values)
+    out_lengths: Optional[np.ndarray] = None
+
+
+# ---------------------------------------------------------------------------
+# bit packing primitives
+# ---------------------------------------------------------------------------
+
+
+def min_bits(values: np.ndarray) -> int:
+    """Bits needed for the max value (>=1 so zero-width buffers never occur)."""
+    if len(values) == 0:
+        return 1
+    m = int(values.max())
+    assert int(values.min()) >= 0, "bitpack requires non-negative values"
+    return max(1, int(m).bit_length())
+
+
+def bitpack(values: np.ndarray, bits: int) -> np.ndarray:
+    """Pack non-negative ints into a dense little-endian bit stream."""
+    v = np.ascontiguousarray(values, dtype=np.uint64)
+    n = len(v)
+    if n == 0:
+        return np.zeros(0, dtype=np.uint8)
+    shifts = np.arange(bits, dtype=np.uint64)
+    bit_mat = ((v[:, None] >> shifts[None, :]) & np.uint64(1)).astype(np.uint8)
+    return np.packbits(bit_mat.reshape(-1), bitorder="little")
+
+
+def bitunpack(buf: np.ndarray, n: int, bits: int) -> np.ndarray:
+    """Inverse of :func:`bitpack`; returns uint64[n]."""
+    if n == 0:
+        return np.zeros(0, dtype=np.uint64)
+    raw = np.unpackbits(np.ascontiguousarray(buf, dtype=np.uint8), bitorder="little")
+    bit_mat = raw[: n * bits].reshape(n, bits).astype(np.uint64)
+    weights = (np.uint64(1) << np.arange(bits, dtype=np.uint64))
+    return bit_mat @ weights
+
+
+def bytepack(values: np.ndarray, width: int) -> np.ndarray:
+    """Pack non-negative ints into ``width`` little-endian bytes per value
+    (byte-aligned bit packing: the transparent variant used by full-zip)."""
+    v = np.ascontiguousarray(values, dtype=np.uint64)
+    shifts = (np.arange(width, dtype=np.uint64) * np.uint64(8))
+    out = ((v[:, None] >> shifts[None, :]) & np.uint64(0xFF)).astype(np.uint8)
+    return out.reshape(-1)
+
+
+def byteunpack(buf: np.ndarray, n: int, width: int) -> np.ndarray:
+    b = np.ascontiguousarray(buf[: n * width], dtype=np.uint8).reshape(n, width)
+    shifts = (np.arange(width, dtype=np.uint64) * np.uint64(8))
+    return (b.astype(np.uint64) << shifts[None, :]).sum(axis=1, dtype=np.uint64)
+
+
+def _zigzag(v: np.ndarray) -> np.ndarray:
+    s = v.astype(np.int64)
+    return ((s << 1) ^ (s >> 63)).astype(np.uint64)
+
+
+def _unzigzag(u: np.ndarray) -> np.ndarray:
+    u = u.astype(np.uint64)
+    return ((u >> np.uint64(1)).astype(np.int64)) ^ -(u & np.uint64(1)).astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-width codecs
+# ---------------------------------------------------------------------------
+
+
+class FixedCodec:
+    """Codec for a 1-D fixed-width numeric array."""
+
+    name: str
+    transparent: bool
+
+    def encode(self, values: np.ndarray) -> Encoded:
+        raise NotImplementedError
+
+    def decode(self, enc: Encoded, n: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def encoded_width(self, enc: Encoded) -> Optional[int]:
+        """Bytes per value when transparent & fixed width, else None."""
+        return None
+
+
+class PlainFixed(FixedCodec):
+    name = "plain"
+    transparent = True
+
+    def encode(self, values: np.ndarray) -> Encoded:
+        return Encoded(
+            np.frombuffer(np.ascontiguousarray(values).tobytes(), dtype=np.uint8).copy(),
+            {"dtype": values.dtype.name, "shape1": 0 if values.ndim == 1 else values.shape[1]},
+        )
+
+    def decode(self, enc: Encoded, n: int) -> np.ndarray:
+        dt = np.dtype(enc.meta["dtype"])
+        flat = np.frombuffer(enc.data.tobytes(), dtype=dt)
+        s1 = enc.meta.get("shape1", 0)
+        return flat.reshape(n, s1) if s1 else flat[:n]
+
+    def encoded_width(self, enc: Encoded) -> Optional[int]:
+        dt = np.dtype(enc.meta["dtype"])
+        s1 = enc.meta.get("shape1", 0) or 1
+        return dt.itemsize * s1
+
+
+class BitPackFixed(FixedCodec):
+    """Dense (non-byte-aligned) bit packing of non-negative ints.
+
+    Transparent in the paper's sense (value ``i`` lives at bit ``i * bits``)
+    but not byte-addressable; used inside mini-block chunks.
+    """
+
+    name = "bitpack"
+    transparent = True
+
+    def encode(self, values: np.ndarray) -> Encoded:
+        bits = min_bits(values)
+        return Encoded(bitpack(values, bits), {"bits": bits, "dtype": values.dtype.name})
+
+    def decode(self, enc: Encoded, n: int) -> np.ndarray:
+        out = bitunpack(enc.data, n, enc.meta["bits"])
+        return out.astype(np.dtype(enc.meta["dtype"]))
+
+
+class BytePackFixed(FixedCodec):
+    """Byte-aligned packing (frame-of-reference against the column min).
+
+    The full-zip transparent integer codec: value ``i`` occupies bytes
+    ``[i*W, (i+1)*W)`` with W in the metadata.
+    """
+
+    name = "bytepack"
+    transparent = True
+
+    def encode(self, values: np.ndarray) -> Encoded:
+        v = np.ascontiguousarray(values)
+        if v.dtype.kind in "iu" and len(v):
+            ref = int(v.min())
+            shifted = (v.astype(np.int64) - ref).astype(np.uint64)
+            width = max(1, (min_bits(shifted) + 7) // 8)
+            return Encoded(
+                bytepack(shifted, width),
+                {"width": width, "ref": ref, "dtype": v.dtype.name},
+            )
+        # floats: plain bytes per value
+        raw = np.frombuffer(v.tobytes(), dtype=np.uint8).copy()
+        return Encoded(raw, {"width": v.dtype.itemsize, "ref": None, "dtype": v.dtype.name})
+
+    def decode(self, enc: Encoded, n: int) -> np.ndarray:
+        dt = np.dtype(enc.meta["dtype"])
+        if enc.meta["ref"] is None:
+            return np.frombuffer(enc.data.tobytes(), dtype=dt)[:n]
+        u = byteunpack(enc.data, n, enc.meta["width"])
+        return (u.astype(np.int64) + enc.meta["ref"]).astype(dt)
+
+    def encoded_width(self, enc: Encoded) -> Optional[int]:
+        return enc.meta["width"]
+
+
+class DeltaBitPack(FixedCodec):
+    """Opaque: delta + zigzag + bitpack (Parquet's delta-binary-packed kin)."""
+
+    name = "delta_bitpack"
+    transparent = False
+
+    def encode(self, values: np.ndarray) -> Encoded:
+        v = values.astype(np.int64)
+        deltas = np.diff(v, prepend=v[:1] if len(v) else np.zeros(1, np.int64))
+        if len(v):
+            deltas[0] = v[0]
+        zz = _zigzag(deltas)
+        bits = min_bits(zz)
+        return Encoded(bitpack(zz, bits), {"bits": bits, "dtype": values.dtype.name})
+
+    def decode(self, enc: Encoded, n: int) -> np.ndarray:
+        zz = bitunpack(enc.data, n, enc.meta["bits"])
+        deltas = _unzigzag(zz)
+        return np.cumsum(deltas).astype(np.dtype(enc.meta["dtype"]))
+
+
+class RLEFixed(FixedCodec):
+    """Opaque: run-length encoding (value, run) with bit-packed columns."""
+
+    name = "rle"
+    transparent = False
+
+    def encode(self, values: np.ndarray) -> Encoded:
+        v = np.asarray(values)
+        if len(v) == 0:
+            return Encoded(np.zeros(0, np.uint8), {"runs": 0, "dtype": v.dtype.name,
+                                                   "vbits": 1, "rbits": 1})
+        change = np.empty(len(v), dtype=bool)
+        change[0] = True
+        np.not_equal(v[1:], v[:-1], out=change[1:])
+        starts = np.nonzero(change)[0]
+        run_vals = v[starts].astype(np.int64)
+        run_lens = np.diff(np.append(starts, len(v))).astype(np.uint64)
+        zz = _zigzag(run_vals)
+        vbits, rbits = min_bits(zz), min_bits(run_lens)
+        a, b = bitpack(zz, vbits), bitpack(run_lens, rbits)
+        return Encoded(
+            np.concatenate([a, b]),
+            {"runs": len(starts), "split": len(a), "vbits": vbits, "rbits": rbits,
+             "dtype": v.dtype.name},
+        )
+
+    def decode(self, enc: Encoded, n: int) -> np.ndarray:
+        r = enc.meta["runs"]
+        if r == 0:
+            return np.zeros(0, dtype=np.dtype(enc.meta["dtype"]))
+        s = enc.meta["split"]
+        vals = _unzigzag(bitunpack(enc.data[:s], r, enc.meta["vbits"]))
+        lens = bitunpack(enc.data[s:], r, enc.meta["rbits"]).astype(np.int64)
+        return np.repeat(vals, lens).astype(np.dtype(enc.meta["dtype"]))[:n]
+
+
+class DictFixed(FixedCodec):
+    """Dictionary over fixed-width values; codes bit-packed, dictionary in the
+    metadata (=> the search cache, as the paper recommends for Lance)."""
+
+    name = "dict"
+    transparent = True  # given the dictionary is cached
+
+    def encode(self, values: np.ndarray) -> Encoded:
+        uniq, codes = np.unique(np.asarray(values), return_inverse=True)
+        bits = min_bits(codes.astype(np.uint64))
+        return Encoded(
+            bitpack(codes.astype(np.uint64), bits),
+            {"bits": bits, "dict": uniq, "dtype": values.dtype.name},
+        )
+
+    def decode(self, enc: Encoded, n: int) -> np.ndarray:
+        codes = bitunpack(enc.data, n, enc.meta["bits"]).astype(np.int64)
+        return enc.meta["dict"][codes]
+
+
+# ---------------------------------------------------------------------------
+# Bytes (variable-width) codecs
+# ---------------------------------------------------------------------------
+
+
+class BytesCodec:
+    """Codec for a stream of variable-width byte values."""
+
+    name: str
+    transparent: bool
+
+    def encode(self, lengths: np.ndarray, data: np.ndarray) -> Encoded:
+        raise NotImplementedError
+
+    def decode(self, enc: Encoded, lengths: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Returns (out_lengths, out_data): decompressed per-value bytes.
+
+        ``lengths`` are the *stored* (compressed) per-value lengths for
+        transparent codecs; for opaque codecs they are ignored and the
+        original lengths come out of the blob.
+        """
+        raise NotImplementedError
+
+
+class PlainBytes(BytesCodec):
+    name = "plain_bytes"
+    transparent = True
+
+    def encode(self, lengths: np.ndarray, data: np.ndarray) -> Encoded:
+        return Encoded(np.asarray(data, np.uint8), {}, out_lengths=np.asarray(lengths, np.int64))
+
+    def decode(self, enc: Encoded, lengths: np.ndarray):
+        return np.asarray(lengths, np.int64), np.asarray(enc.data, np.uint8)
+
+
+class ZstdPerValue(BytesCodec):
+    """Opaque codec applied per value => transparent usage (paper sec. 2.2:
+    'Lance will apply LZ4 compression on a per-value basis')."""
+
+    name = "zstd_per_value"
+    transparent = True
+
+    def encode(self, lengths: np.ndarray, data: np.ndarray) -> Encoded:
+        raw = data.tobytes()
+        offs = np.zeros(len(lengths) + 1, dtype=np.int64)
+        np.cumsum(lengths, out=offs[1:])
+        frames = [_ZSTD_C.compress(raw[offs[i]: offs[i + 1]]) for i in range(len(lengths))]
+        out_lens = np.array([len(f) for f in frames], dtype=np.int64)
+        blob = np.frombuffer(b"".join(frames), dtype=np.uint8).copy() if frames else np.zeros(0, np.uint8)
+        return Encoded(blob, {}, out_lengths=out_lens)
+
+    def decode(self, enc: Encoded, lengths: np.ndarray):
+        raw = enc.data.tobytes()
+        offs = np.zeros(len(lengths) + 1, dtype=np.int64)
+        np.cumsum(lengths, out=offs[1:])
+        vals = [_ZSTD_D.decompress(raw[offs[i]: offs[i + 1]]) for i in range(len(lengths))]
+        out_lens = np.array([len(v) for v in vals], dtype=np.int64)
+        blob = np.frombuffer(b"".join(vals), dtype=np.uint8).copy() if vals else np.zeros(0, np.uint8)
+        return out_lens, blob
+
+
+class ZstdChunk(BytesCodec):
+    """Opaque whole-buffer compression (mini-block / parquet pages only)."""
+
+    name = "zstd_chunk"
+    transparent = False
+
+    def encode(self, lengths: np.ndarray, data: np.ndarray) -> Encoded:
+        blob = _ZSTD_C.compress(data.tobytes())
+        return Encoded(
+            np.frombuffer(blob, dtype=np.uint8).copy(),
+            {"lengths_inline": np.asarray(lengths, np.int64)},
+        )
+
+    def decode(self, enc: Encoded, lengths: np.ndarray):
+        raw = _ZSTD_D.decompress(enc.data.tobytes())
+        out_lens = enc.meta["lengths_inline"]
+        return np.asarray(out_lens, np.int64), np.frombuffer(raw, dtype=np.uint8).copy()
+
+
+class FSSTLite(BytesCodec):
+    """Simplified FSST: a static table of 1- and 2-byte symbols mapped to
+    1-byte codes; 0xFF escapes a literal byte.  Transparent: every value is
+    encoded independently, so a value can be sliced and decoded alone given
+    the symbol table (which lives in the search cache)."""
+
+    name = "fsst_lite"
+    transparent = True
+    MAX_SYMS = 254  # codes 0..253; 254 unused; 255 = escape
+    ESC = 255
+
+    def _train(self, data: np.ndarray) -> List[bytes]:
+        sample = data[: 1 << 16]
+        if len(sample) < 2:
+            return []
+        pairs = sample[:-1].astype(np.uint16) | (sample[1:].astype(np.uint16) << 8)
+        pc = np.bincount(pairs, minlength=1 << 16)
+        singles = np.bincount(sample, minlength=256)
+        # savings: pair used saves 1 byte/occurrence; single saves 1 byte ONLY
+        # vs escaped literal; prefer pairs, then frequent singles.
+        n_pairs = min(128, int((pc > 4).sum()))
+        top_pairs = np.argsort(pc)[::-1][:n_pairs]
+        top_pairs = [int(p) for p in top_pairs if pc[p] > 4]
+        n_single = self.MAX_SYMS - len(top_pairs)
+        top_singles = [int(s) for s in np.argsort(singles)[::-1][:n_single] if singles[s] > 0]
+        syms = [bytes([p & 0xFF, p >> 8]) for p in top_pairs]
+        syms += [bytes([s]) for s in top_singles]
+        return syms[: self.MAX_SYMS]
+
+    def encode(self, lengths: np.ndarray, data: np.ndarray) -> Encoded:
+        data = np.asarray(data, np.uint8)
+        syms = self._train(data)
+        pair_code = {}
+        single_code = {}
+        for c, s in enumerate(syms):
+            if len(s) == 2:
+                pair_code[s[0] | (s[1] << 8)] = c
+            else:
+                single_code[s[0]] = c
+        n = len(data)
+        if n == 0:
+            return Encoded(np.zeros(0, np.uint8), {"syms": syms},
+                           out_lengths=np.zeros(len(lengths), np.int64))
+        # value boundaries: pairs must not straddle values
+        offs = np.zeros(len(lengths) + 1, dtype=np.int64)
+        np.cumsum(lengths, out=offs[1:])
+        boundary = np.zeros(n + 1, dtype=bool)
+        boundary[offs[offs <= n]] = True
+
+        pair_lut = np.full(1 << 16, -1, dtype=np.int16)
+        for p, c in pair_code.items():
+            pair_lut[p] = c
+        single_lut = np.full(256, -1, dtype=np.int16)
+        for s, c in single_code.items():
+            single_lut[s] = c
+
+        pairs = np.zeros(n, dtype=np.uint16)
+        if n > 1:
+            pairs[:-1] = data[:-1].astype(np.uint16) | (data[1:].astype(np.uint16) << 8)
+        cand = np.zeros(n, dtype=bool)
+        if n > 1:
+            cand[:-1] = pair_lut[pairs[:-1]] >= 0
+            cand[:-1] &= ~boundary[1:n]  # pair (i, i+1) must not cross a boundary
+        # greedy left-to-right non-overlap == take even offsets within runs
+        run_start = cand & ~np.concatenate([[False], cand[:-1]])
+        run_id = np.cumsum(run_start)
+        pos_in_run = np.arange(n) - np.maximum.accumulate(
+            np.where(run_start, np.arange(n), -1)
+        )
+        sel = cand & ((pos_in_run & 1) == 0)
+        # a selected pair at i consumes i+1; i+1 cannot also be selected (it
+        # would be odd position in the run) -- holds by parity.
+        consumed = np.zeros(n, dtype=bool)
+        consumed[1:] = sel[:-1]
+        single_pos = ~sel & ~consumed
+        # emit: selected pair -> 1 code byte; single in table -> 1 code byte;
+        # else escape + literal (2 bytes)
+        out_len_at = np.zeros(n, dtype=np.int64)
+        out_len_at[sel] = 1
+        s_in = single_pos & (single_lut[data] >= 0)
+        s_esc = single_pos & ~s_in
+        out_len_at[s_in] = 1
+        out_len_at[s_esc] = 2
+        out_pos = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(out_len_at, out=out_pos[1:])
+        total = int(out_pos[-1])
+        out = np.zeros(total, dtype=np.uint8)
+        out[out_pos[:-1][sel]] = pair_lut[pairs[sel]].astype(np.uint8)
+        out[out_pos[:-1][s_in]] = single_lut[data[s_in]].astype(np.uint8)
+        out[out_pos[:-1][s_esc]] = self.ESC
+        out[out_pos[:-1][s_esc] + 1] = data[s_esc]
+        out_lengths = out_pos[offs[1:]] - out_pos[offs[:-1]]
+        return Encoded(out, {"syms": syms}, out_lengths=out_lengths.astype(np.int64))
+
+    def decode(self, enc: Encoded, lengths: np.ndarray):
+        syms: List[bytes] = enc.meta["syms"]
+        data = np.asarray(enc.data, np.uint8)
+        n = len(data)
+        if n == 0:
+            return np.zeros(len(lengths), np.int64), np.zeros(0, np.uint8)
+        sym_len = np.ones(256, dtype=np.int64)  # escape handled separately
+        sym_b0 = np.arange(256, dtype=np.uint8)
+        sym_b1 = np.zeros(256, dtype=np.uint8)
+        for c, s in enumerate(syms):
+            sym_len[c] = len(s)
+            sym_b0[c] = s[0]
+            sym_b1[c] = s[1] if len(s) == 2 else 0
+        is_code_start = np.ones(n, dtype=bool)
+        # escape consumes 2 input bytes; compute starts via scan on escapes:
+        # a byte is a start iff previous start wasn't an escape consuming it.
+        esc = data == self.ESC
+        # sequential dependency only through escape chains; escapes cannot be
+        # produced by code emission, so: start[i] = not (start[i-1] and esc[i-1])
+        start = np.ones(n, dtype=bool)
+        i = 0
+        # vectorized: runs of consecutive escapes alternate; find via parity
+        esc_run_start = esc & ~np.concatenate([[False], esc[:-1]])
+        pos_in_esc_run = np.arange(n) - np.maximum.accumulate(
+            np.where(esc_run_start, np.arange(n), -1)
+        )
+        # within an escape run starting at a start position, escapes at even
+        # offsets are code starts (escape), odd offsets are literals.
+        consumed_by_esc = np.zeros(n, dtype=bool)
+        consumed_by_esc[1:] = esc[:-1] & ((pos_in_esc_run[:-1] & 1) == 0)
+        # note: a literal byte equal to ESC inside an escape pair is consumed;
+        # runs handle chains of escaped-escapes correctly by parity.
+        start = ~consumed_by_esc
+        starts_idx = np.nonzero(start)[0]
+        codes = data[starts_idx]
+        is_esc = codes == self.ESC
+        lit = np.zeros(len(codes), dtype=np.uint8)
+        lit_idx = starts_idx[is_esc] + 1
+        lit[is_esc] = data[np.minimum(lit_idx, n - 1)]
+        out_len = np.where(is_esc, 1, sym_len[codes])
+        out_pos = np.zeros(len(codes) + 1, dtype=np.int64)
+        np.cumsum(out_len, out=out_pos[1:])
+        out = np.zeros(int(out_pos[-1]), dtype=np.uint8)
+        p = out_pos[:-1]
+        out[p[is_esc]] = lit[is_esc]
+        one = ~is_esc & (sym_len[codes] == 1)
+        two = ~is_esc & (sym_len[codes] == 2)
+        out[p[one]] = sym_b0[codes[one]]
+        out[p[two]] = sym_b0[codes[two]]
+        out[p[two] + 1] = sym_b1[codes[two]]
+        # per-value output lengths: map stored lengths (compressed) to input
+        # positions, then to output positions
+        in_offs = np.zeros(len(lengths) + 1, dtype=np.int64)
+        np.cumsum(lengths, out=in_offs[1:])
+        # output offset at each input byte position
+        out_at = np.zeros(n + 1, dtype=np.int64)
+        out_at[starts_idx] = out_pos[:-1]
+        # forward-fill non-start positions, then append total
+        np.maximum.accumulate(out_at[:-1], out=out_at[:-1])
+        out_at[n] = out_pos[-1]
+        out_lengths = out_at[in_offs[1:]] - out_at[in_offs[:-1]]
+        return out_lengths.astype(np.int64), out
+
+
+FIXED_CODECS: Dict[str, FixedCodec] = {
+    c.name: c for c in [PlainFixed(), BitPackFixed(), BytePackFixed(), DeltaBitPack(), RLEFixed(), DictFixed()]
+}
+BYTES_CODECS: Dict[str, BytesCodec] = {
+    c.name: c for c in [PlainBytes(), ZstdPerValue(), ZstdChunk(), FSSTLite()]
+}
+
+
+def get_fixed_codec(name: str) -> FixedCodec:
+    return FIXED_CODECS[name]
+
+
+def get_bytes_codec(name: str) -> BytesCodec:
+    return BYTES_CODECS[name]
