@@ -10,7 +10,8 @@ Results come in three tiers:
    characteristics (Samsung 970 EVO Plus NVMe; S3 from [4]).
 
 This is the port's copy of the healthy-device subset: the fault models
-(degradations, transient errors, blackouts) come with the full store.
+(degradations, transient errors, blackouts) wait for ROADMAP.md, Queue 1
+item 4 (the full store).
 """
 
 from __future__ import annotations
@@ -52,6 +53,45 @@ class Disk:
             )
         # copy so callers can never alias (or mutate) the backing store
         return self._mem[offset : offset + size].copy()
+
+    def write(self, offset: int, data) -> None:
+        """Data-plane write: store ``data`` at ``offset``.  Durability is
+        *not* implied — the store decides when the bytes count as persisted
+        on the backing device."""
+        data = np.frombuffer(bytes(data), dtype=np.uint8) \
+            if isinstance(data, (bytes, bytearray)) else np.asarray(data, np.uint8)
+        offset = int(offset)
+        if offset < 0 or offset + len(data) > self._size:
+            raise ValueError(
+                f"write [{offset}, {offset + len(data)}) out of bounds for "
+                f"{self._size}-byte disk")
+        self._mem[offset : offset + len(data)] = data
+
+    def grow(self, nbytes: int) -> int:
+        """Extend the address space by ``nbytes`` zero bytes (append path);
+        returns the new size.  Existing views/readers stay valid — they hold
+        the Disk object, not the buffer.  Capacity doubles geometrically (a
+        logical ``_size`` over a larger backing array) so N appends cost
+        amortized O(appended bytes), not O(total * N) reallocation."""
+        nbytes = int(nbytes)
+        if nbytes < 0:
+            raise ValueError(f"cannot grow by {nbytes} bytes")
+        new_size = self._size + nbytes
+        if new_size > len(self._mem):
+            buf = np.zeros(max(new_size, 2 * len(self._mem), 4096), np.uint8)
+            buf[: self._size] = self._mem[: self._size]
+            self._mem = buf
+        # bytes in [_size, new_size) are zero: writes are bounds-checked to
+        # _size, so the spare capacity has never been touched
+        self._size = new_size
+        return self._size
+
+    def zero(self, lo: int, hi: int) -> None:
+        """Zero a byte range in place (the crash simulator's torn-write
+        model: unflushed bytes vanish from the media)."""
+        lo, hi = max(int(lo), 0), min(int(hi), self._size)
+        if hi > lo:
+            self._mem[lo:hi] = 0
 
     def read_gather(self, offsets, sizes) -> Tuple[np.ndarray, np.ndarray]:
         """Vectorized multi-extent read: one gather for N spans.

@@ -1,0 +1,137 @@
+"""IVF ANN index stored *as dataset fragments*.
+
+The index is not a sidecar file: centroids and posting lists are columns of
+a second, schema-independent fragment set written through
+:meth:`DatasetWriter.attached` into the **same global address space** as the
+data.  The index so gets every property fragments have — committed
+durability, manifest versions / time travel, ``compact()`` — and its blocks
+carry ordinary sector ids on the shared disk, so index reads are priced by
+the same :class:`~repro_torch.store.IOScheduler` as the data reads they
+trigger.
+
+Layout: one row per partition, two columns —
+
+* ``centroid``: fixed-size-list float32[dim] (full-zip: one random-access
+  IOP fetches a centroid row);
+* ``posting``: list<int64> of the partition's *global* row ids, ascending
+  (mini-block bit-packed).
+
+Training is plain seeded Lloyd's k-means over one full scan of the vector
+column, on the host in numpy, as the reference's is: the same vectors and
+seed give bit-identical centroids and labels.  Empty clusters keep their
+previous centroid, so every seed yields a deterministic index.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from ..core import arrays as A
+from ..core.file import WriteOptions
+from .writer import DatasetWriter
+
+__all__ = ["IvfIndex", "kmeans"]
+
+
+def kmeans(vecs: np.ndarray, n_partitions: int, n_iters: int = 8,
+           seed: int = 0):
+    """Seeded Lloyd's iterations; returns ``(centroids, labels)``.
+
+    Distances use the expanded |a-b|^2 = |a|^2 - 2ab + |b|^2 form so the
+    working set stays (n, P) — never materializing (n, P, dim).
+    """
+    vecs = np.asarray(vecs, np.float32)
+    n, dim = vecs.shape
+    p = int(n_partitions)
+    if not 1 <= p <= n:
+        raise ValueError(f"n_partitions must be in 1..{n}, got {p}")
+    rng = np.random.default_rng(seed)
+    cent = vecs[np.sort(rng.choice(n, size=p, replace=False))].copy()
+    vv = (vecs * vecs).sum(1)[:, None]
+    labels = np.zeros(n, np.int64)
+    for _ in range(max(1, int(n_iters))):
+        d = vv - 2.0 * (vecs @ cent.T) + (cent * cent).sum(1)[None]
+        labels = d.argmin(1)
+        for j in range(p):
+            members = labels == j
+            if members.any():
+                cent[j] = vecs[members].mean(0)
+    return cent, labels
+
+
+class IvfIndex:
+    """An IVF partition index over one vector column of a dataset.
+
+    Build with :meth:`build` (trains + writes + commits through an attached
+    writer); query through
+    :meth:`repro_torch.serve.engine.Retriever.search`, which probes
+    centroids, fetches posting lists, and scores candidates — every read on
+    the shared store.
+    """
+
+    def __init__(self, writer: DatasetWriter, column: str,
+                 n_partitions: int, dim: int):
+        self.writer = writer          # attached: shares the data IO path
+        self.column = column
+        self.n_partitions = int(n_partitions)
+        self.dim = int(dim)
+
+    @classmethod
+    def build(cls, data: DatasetWriter, column: str = "embedding",
+              n_partitions: int = 16, n_fragments: int = 2,
+              n_iters: int = 8, seed: int = 0,
+              opts: Optional[WriteOptions] = None) -> "IvfIndex":
+        """Train k-means over ``data``'s committed ``column`` and commit the
+        index as ``n_fragments`` fragments of an attached writer."""
+        arr = data.scan(column)
+        vecs = np.asarray(arr.values, np.float32)
+        cent, labels = kmeans(vecs, n_partitions, n_iters, seed)
+        postings = [np.flatnonzero(labels == j).astype(np.int64)
+                    for j in range(int(n_partitions))]
+        writer = DatasetWriter.attached(
+            data, opts=opts or WriteOptions("lance"))
+        per = -(-int(n_partitions) // max(1, int(n_fragments)))
+        for lo in range(0, int(n_partitions), per):
+            hi = min(lo + per, int(n_partitions))
+            writer.append(cls._table(cent[lo:hi], postings[lo:hi]),
+                          commit=False)
+        writer.commit()
+        return cls(writer, column, n_partitions, vecs.shape[1])
+
+    @staticmethod
+    def _table(cent: np.ndarray, postings: Sequence[np.ndarray]):
+        offsets = np.zeros(len(postings) + 1, np.int64)
+        np.cumsum([len(p) for p in postings], out=offsets[1:])
+        child = A.PrimitiveArray.build(
+            np.concatenate(postings) if postings else np.zeros(0, np.int64),
+            nullable=False)
+        return {"centroid": A.FixedSizeListArray.build(cent),
+                "posting": A.ListArray.build(child, offsets)}
+
+    # -- query-side accessors (all reads go through the shared store) --------
+    def reader(self, version: Optional[int] = None):
+        """Index fragments at a committed index-manifest version (time
+        travel over the index, independent of data versions)."""
+        return self.writer.reader(version)
+
+    def centroids(self, version: Optional[int] = None) -> np.ndarray:
+        """(P, dim) float32 — one batched take of every centroid row."""
+        arr = self.reader(version).take(
+            "centroid", np.arange(self.n_partitions, dtype=np.int64))
+        return np.asarray(arr.values, np.float32)
+
+    def postings(self, parts: Sequence[int],
+                 version: Optional[int] = None) -> List[np.ndarray]:
+        """Posting lists for ``parts`` — one batched take of the probed
+        partitions' rows."""
+        parts = np.asarray(parts, np.int64)
+        arr = self.reader(version).take("posting", parts)
+        off, child = arr.offsets, np.asarray(arr.child.values, np.int64)
+        return [child[off[i]:off[i + 1]] for i in range(len(parts))]
+
+    def compact(self, max_rows: Optional[int] = None):
+        """Merge small index fragments; commits a new index manifest
+        version like any dataset compaction."""
+        return self.writer.compact(max_rows or self.n_partitions)

@@ -16,7 +16,8 @@ Both mappings live here:
 
 The manifest is built by parsing each file's footer (schema + row counts);
 schemas must match across fragments.  ``version`` numbers the manifests a
-dataset writer commits; the port's datasets are built from files, version 0.
+dataset writer commits (v1..vN); a dataset built straight from files is
+version 0.
 """
 
 from __future__ import annotations

@@ -27,7 +27,7 @@ from ..core.file import FileReader, type_from_dict
 from ..core.io_sim import DiskView
 from ..core.shred import unshred
 
-from .manifest import build_dataset_disk
+from .manifest import Manifest, build_dataset_disk
 
 __all__ = ["DatasetReader"]
 
@@ -48,17 +48,44 @@ class DatasetReader:
         from ..store import IOScheduler, make_store
 
         manifest, disk = build_dataset_disk(files)
+        scheduler = IOScheduler(make_store(store, disk),
+                                queue_depth=queue_depth)
+        self._bind(manifest, disk, scheduler, decode=decode, device=device)
+
+    @classmethod
+    def from_manifest(cls, manifest: Manifest, disk, scheduler,
+                      decode: Optional[str] = None, device=None,
+                      readers: Optional[List[FileReader]] = None,
+                      ) -> "DatasetReader":
+        """View an already-materialized dataset (a manifest *version* over a
+        shared disk + scheduler) without rebuilding the address space.  The
+        dataset writer uses this for time travel: one reader per committed
+        version, all sharing the writer's store.  ``readers`` supplies
+        pre-built per-fragment ``FileReader``\\ s (cached by the writer so a
+        fragment's footer is parsed once, not once per version)."""
+        self = cls.__new__(cls)
+        self._bind(manifest, disk, scheduler, decode=decode, device=device,
+                   readers=readers)
+        return self
+
+    def _bind(self, manifest, disk, scheduler, decode=None, device=None,
+              readers=None):
         self.manifest = manifest
         self.disk = disk
-        self.store = make_store(store, disk)
-        self.scheduler = IOScheduler(self.store, queue_depth=queue_depth)
-        self.fragments: List[FileReader] = [
+        self.store = scheduler.store
+        self.scheduler = scheduler
+        self.fragments: List[FileReader] = readers if readers is not None else [
             FileReader(DiskView(self.disk, f.base, f.nbytes),
                        scheduler=self.scheduler, base=f.base,
                        decode=decode, device=device)
             for f in self.manifest.fragments
         ]
         self.columns = self.fragments[0].columns
+
+    @property
+    def device(self):
+        """The device the fragments' decode routes run on."""
+        return self.fragments[0].device
 
     # -- geometry ------------------------------------------------------------
     @property

@@ -25,18 +25,23 @@ __all__ = ["load_kernels", "build_kernels", "SOURCES", "BUILD_DIR",
            "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("miniblock_decode.cu", "fullzip_gather.cu")
+SOURCES = ("miniblock_decode.cu", "fullzip_gather.cu", "ivf_topk.cu",
+           "bitunpack.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the C entry point of each library: name -> argtypes
 _ENTRY = {
     "miniblock_decode.cu": ("miniblock_decode_launch",
                             [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fullzip_gather.cu": ("fullzip_gather_launch", [_P, _P, _P, _I, _I, _P]),
+    "ivf_topk.cu": ("ivf_topk_launch",
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _P]),
+    "bitunpack.cu": ("bitunpack_launch", [_P, _P, _L, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -9,8 +9,17 @@ op counts so queue-depth-limited round trips can be priced.
 a phase with more outstanding requests than the device queue can hold pays
 one round-trip latency per queue drain, not one per phase.
 
-This is the port's copy of the read-side subset: cache, prefetch and
-write-path counters come with the full store.
+The write path adds the ingest-side counters: ``write_iops`` /
+``bytes_written`` are dispatched device writes; ``flush_iops`` /
+``flush_bytes`` the subset issued by a flusher; ``rmw_iops`` / ``rmw_bytes``
+the read-modify-write merge reads of sub-sector write edges; ``dirty_bytes``
+the resident not-yet-durable footprint and ``lost_bytes`` the dirty bytes a
+simulated crash discarded.  On the flat store writes are write-through, so
+the last two stay 0 there.
+
+This is the port's copy without the cache-tier counters (hits, misses,
+evictions, prefetch), which wait for ROADMAP.md, Queue 1 item 4 (the full
+store).
 """
 
 from __future__ import annotations
@@ -52,6 +61,14 @@ class TierStats:
     name: str
     n_iops: int = 0          # dispatched device requests
     bytes_read: int = 0      # sector-aligned bytes served
+    write_iops: int = 0      # dispatched device write requests
+    bytes_written: int = 0   # sector-aligned bytes written to this tier
+    flush_iops: int = 0      # subset of write_iops issued by a flusher
+    flush_bytes: int = 0     # subset of bytes_written issued by a flusher
+    rmw_iops: int = 0        # read-modify-write merge reads (subset of n_iops)
+    rmw_bytes: int = 0       # subset of bytes_read issued by RMW merges
+    dirty_bytes: int = 0     # resident dirty bytes
+    lost_bytes: int = 0      # dirty bytes discarded by a simulated crash
     max_phase: int = 0       # deepest dependency phase seen (+1)
     phase_ops: Dict[int, int] = dataclasses.field(default_factory=dict)
     phase_bytes: Dict[int, int] = dataclasses.field(default_factory=dict)
@@ -64,6 +81,20 @@ class TierStats:
         self.phase_bytes[int(phase)] = (
             self.phase_bytes.get(int(phase), 0) + int(nbytes))
         self.max_phase = max(self.max_phase, int(phase) + 1)
+
+    def add_write_op(self, nbytes: int, phase: int, flush: bool = False) -> None:
+        """One dispatched device *write*.  Writes share the per-phase op
+        buckets with reads, so a drain's round-trip pricing covers both
+        directions of traffic."""
+        self.write_iops += 1
+        self.bytes_written += int(nbytes)
+        self.phase_ops[int(phase)] = self.phase_ops.get(int(phase), 0) + 1
+        self.phase_bytes[int(phase)] = (
+            self.phase_bytes.get(int(phase), 0) + int(nbytes))
+        self.max_phase = max(self.max_phase, int(phase) + 1)
+        if flush:
+            self.flush_iops += 1
+            self.flush_bytes += int(nbytes)
 
     def end_batch(self) -> Optional[Tuple[Dict[int, int], Dict[int, int]]]:
         """Close the open batch: its phases become one archived queue drain.
@@ -80,11 +111,12 @@ class TierStats:
     def model_time(self, dev: DeviceModel, queue_depth: int = 256) -> float:
         """Price this tier's dispatched trace on ``dev``: throughput-limited
         term plus queue-depth-limited dependency round trips, one drain per
-        (batch, phase)."""
-        total_ops = self.n_iops
+        (batch, phase).  Reads and writes share the device's throughput and
+        queue."""
+        total_ops = self.n_iops + self.write_iops
         if total_ops == 0:
             return 0.0
-        total_bytes = self.bytes_read
+        total_bytes = self.bytes_read + self.bytes_written
         avg = max(total_bytes / total_ops, 1.0)
         eff = max(avg, dev.min_read)
         iops_limit = min(dev.iops_4k, dev.seq_bw / eff)
@@ -105,6 +137,10 @@ class TierStats:
 
     def reset(self) -> None:
         self.n_iops = self.bytes_read = 0
+        self.write_iops = self.bytes_written = 0
+        self.flush_iops = self.flush_bytes = 0
+        self.rmw_iops = self.rmw_bytes = 0
+        self.dirty_bytes = self.lost_bytes = 0
         self.max_phase = 0
         self.phase_ops = {}
         self.phase_bytes = {}

@@ -127,3 +127,23 @@ def assert_same_io(want_reader, got_reader):
 
 def r_opts(encoding: str, **kw) -> RWriteOptions:
     return RWriteOptions(encoding, **kw)
+
+
+TIER_FIELDS = ("n_iops", "bytes_read", "write_iops", "bytes_written",
+               "flush_iops", "flush_bytes", "rmw_iops", "rmw_bytes",
+               "dirty_bytes", "lost_bytes", "max_phase", "phase_ops",
+               "phase_bytes", "batch_phases")
+
+
+def assert_same_writer_io(want, got):
+    """Identical read and write traces, per-tier read/write/flush/RMW/dirty/
+    lost counters and modelled time of two dataset writers on the flat
+    store."""
+    assert dataclasses.astuple(want.io_stats()) == dataclasses.astuple(got.io_stats())
+    assert dataclasses.astuple(want.write_stats()) == \
+        dataclasses.astuple(got.write_stats())
+    wt, gt = want.tier_stats(), got.tier_stats()
+    assert len(wt) == len(gt) == 1
+    for f in TIER_FIELDS:
+        assert getattr(wt[0], f) == getattr(gt[0], f), f
+    assert want.modelled_time() == got.modelled_time()

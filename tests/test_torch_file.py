@@ -122,7 +122,8 @@ def _check_reader_parity(fb, rows, scan=True):
         assert_same_array(want.scan("c"), got.scan("c"))
     assert_same_io(want, got)
     assert ops.fallbacks == _fallbacks(tracer)
-    assert ops.launches == {"miniblock_decode": 0, "fullzip_gather": 0}
+    assert ops.launches == {"miniblock_decode": 0, "fullzip_gather": 0,
+                            "ivf_topk": 0, "bitunpack": 0}
 
 
 @pytest.mark.parametrize("encoding", LANCE_ENCODINGS)

@@ -44,7 +44,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch.core, repro_torch.store, repro_torch.dataset, "
-            "repro_torch.kernels.ops, repro_torch.kernels.build, repro_torch.kernels.ref; "
+            "repro_torch.serve, repro_torch.kernels.ops, repro_torch.kernels.build, "
+            "repro_torch.kernels.ref; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
