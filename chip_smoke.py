@@ -33,10 +33,19 @@ Phases, one JSON object per line on stdout:
 6. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
    ``kernel_bench`` size), unpacked on the card and checked against the
    packed values;
-7. each kernel at the largest input its path gave it: its time, its plain
-   version's, a PyTorch library call's where one computes the same
-   function, and the least time the card could take (bytes over 3.35 TB/s
-   or operations over 67 T/s, whichever is larger);
+7. each kernel at the largest input each path gave it (``take``, ``search``
+   and ``bitunpack``; ``ivf_topk`` per search step: the centroid ``probe``
+   and the ``candidates`` of each batch size), one ``kernels`` entry each:
+   ``ms``, the mean of 20 back-to-back launches by CUDA events, host launch
+   path included; ``graph_ms``, the same 20 launches captured in one CUDA
+   graph, one replay over 20 (the kernel's own device time, L2-warm);
+   ``cold_ms``, launches timed alone after a 128 MB write flushed the 50 MB
+   L2; ``launch_us``, host wall time per call of 1,000 launches at the
+   kernel's smallest sweep input; its plain version's ``plain_ms``; the
+   PyTorch call that computes the same function, where one does
+   (``library_ms``, ``library_graph_ms``); and the least time the card
+   could take (bytes over 3.35 TB/s or operations over 67 T/s, whichever
+   is larger);
 8. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises, so the script exits non-zero and prints no result line.
@@ -115,8 +124,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA
-    events (inputs stay L2-warm between calls)."""
+    """Mean time of ``fn`` over ``reps`` back-to-back calls, by CUDA events
+    (inputs stay L2-warm between calls).  Each call pays its host launch
+    path too, so at small sizes this measures the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -130,14 +140,85 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, each replay timed by CUDA events and divided by ``reps``;
+    the median of ``replays`` replays.  The host launch path is paid once,
+    at capture, so this is the kernels' own time (L2-warm)."""
+    fn()  # first launch outside the capture: build, load, set attributes
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del g
+    return float(np.median(times))
+
+
+def cold_ms(fn, reps: int = 20, flush_bytes: int = 128 << 20) -> float:
+    """Mean time of ``fn`` with the 50 MB L2 flushed before each call: a
+    128 MB scratch buffer is written, then the call alone is timed by its
+    own CUDA events."""
+    scratch = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    fn()
+    pairs = []
+    for i in range(reps):
+        scratch.fill_(i & 0xFF)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def launch_us(fn, calls: int = 1000) -> float:
+    """Host wall clock per call of ``calls`` back-to-back calls, synchronised
+    once at the end: the host launch path at an input too small for the
+    kernel to matter."""
+    fn()
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - s) / calls * 1e6
+
+
+def ivf_step(queries, cands) -> str:
+    """Which step of a search an ``ivf_topk`` call is: the centroid probe
+    scores the index's PARTITIONS centroids, the candidate step the rows of
+    the probed partitions (one entry per batch size)."""
+    if cands.shape[0] == PARTITIONS:
+        return "probe"
+    return f"candidates q={queries.shape[0]}"
+
+
 class Probe:
     """Wraps the port's kernel wrappers and host<->device copies with CUDA
-    events, and keeps the largest input the main path gave each kernel.
-    The wrappers' own launch counts are untouched."""
+    events.  For each kernel, path (``self.path``, set by ``main``) and
+    search step it keeps the largest input a launching call had and the
+    launches those calls made (read off the wrapper's own count).  The
+    wrappers' counts are untouched."""
 
     def __init__(self):
         self.events = {}
-        self.largest = {}
+        self.largest = {}  # (kernel, path, step) -> (size, args, kw)
+        self.launched = {}  # (kernel, path, step) -> launches
+        self.path = None
         self.real = {n: getattr(ops, n) for n in
                      (*WRAPPERS.values(), "to_device", "to_host")}
         for name, fn in self.real.items():
@@ -147,18 +228,25 @@ class Probe:
         kernel = {w: k for k, w in WRAPPERS.items()}.get(name)
 
         def timed(*args, **kw):
+            n0 = ops.launches[kernel] if kernel else 0
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
             out = fn(*args, **kw)
             e.record()
             self.events.setdefault(name, []).append((s, e))
-            if kernel is not None:
-                # ivf_topk by its candidate matrix, the others by their output
-                size = args[1].numel() if kernel == "ivf_topk" else \
-                    sum(o.numel() for o in (out if isinstance(out, tuple) else (out,)))
-                if size > self.largest.get(kernel, (0,))[0]:
-                    self.largest[kernel] = (size, args, kw)
+            launched = ops.launches[kernel] - n0 if kernel else 0
+            if launched:
+                step = ivf_step(*args[:2]) if kernel == "ivf_topk" else None
+                key = (kernel, self.path, step)
+                self.launched[key] = self.launched.get(key, 0) + launched
+                # ivf_topk by its candidate matrix, then queries x k; the
+                # others by their output
+                size = (args[1].numel(), args[0].shape[0] * args[3]) \
+                    if kernel == "ivf_topk" else \
+                    (sum(o.numel() for o in (out if isinstance(out, tuple) else (out,))),)
+                if size > self.largest.get(key, ((0,),))[0]:
+                    self.largest[key] = (size, args, kw)
             return out
 
         return timed
@@ -215,9 +303,22 @@ def _compare(got, want):
 
 
 def sweep_phase():
+    """Each kernel against its plain version over its sweep.  Returns the
+    per-kernel tallies and, per kernel, its smallest launching input (where
+    ``launch_us`` is taken)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    res = {"miniblock_decode": [0, 0, 0], "fullzip_gather": [0, 0, 0]}
+    res = {name: [0, 0, 0] for name in WRAPPERS}
+    smallest = {}
+
+    def tally(name, mism, err, size, args, kw=None):
+        r = res[name]
+        r[0] += 1
+        r[1] += mism
+        r[2] = max(r[2], err)
+        if size and size < smallest.get(name, (np.inf,))[0]:
+            smallest[name] = (size, args, kw or {})
+
     for rep_bits, def_bits in [(0, 0), (0, 1), (0, 2), (1, 2), (2, 3)]:
         for vpe in (1, 4):
             for C in (1, 4, 33):
@@ -226,47 +327,34 @@ def sweep_phase():
                     case = ref.miniblock_case(rng, rep_bits, def_bits, vpe, C,
                                               tile, max_bits, refs)
                     t = [torch.from_numpy(a).to(dev) for a in case]
-                    got = ops.miniblock_decode(*t, rep_bits=rep_bits, def_bits=def_bits,
-                                               vpe=vpe, tile_entries=tile, fill=-5)
+                    kw = dict(rep_bits=rep_bits, def_bits=def_bits, vpe=vpe,
+                              tile_entries=tile, fill=-5)
+                    got = ops.miniblock_decode(*t, **kw)
                     want = ref.miniblock_decode_ref(t[0], t[1], t[2], t[3][:, 0], t[3][:, 1],
                                                     t[3][:, 2], tile, rep_bits, def_bits, vpe, -5)
-                    m, e = _compare(got, want)
-                    r = res["miniblock_decode"]
-                    r[0] += 1
-                    r[1] += m
-                    r[2] = max(r[2], e)
-    for stride in (1, 8, 24, 33, 129, 136, 512, 1536):
-        for n_take in (0, 1, 7, 64, 1000):
-            zipped = torch.from_numpy(rng.integers(0, 256, (300, stride), dtype=np.uint8)).to(dev)
-            rows = torch.from_numpy(rng.integers(0, 300, n_take).astype(np.int32)).to(dev)
-            m, e = _compare((ops.fullzip_gather(zipped, rows),),
-                            (ref.fullzip_gather_ref(zipped, rows),))
-            r = res["fullzip_gather"]
-            r[0] += 1
-            r[1] += m
-            r[2] = max(r[2], e)
-    res["bitunpack"] = [0, 0, 0]
+                    tally("miniblock_decode", *_compare(got, want),
+                          sum(g.numel() for g in got), t, kw)
+    for _, zipped, rows, offset in ref.gather_cases(rng):
+        zipped = ref.at_offset(zipped, dev, offset)
+        rows = torch.from_numpy(rows).to(dev)
+        got = ops.fullzip_gather(zipped, rows)
+        tally("fullzip_gather", *_compare((got,), (ref.fullzip_gather_ref(zipped, rows),)),
+              got.numel(), (zipped, rows))
     for bits in (1, 3, 5, 8, 11, 16, 21, 32):
         for n in (1, 100, 8192, 20000):
             v = rng.integers(0, 2 ** min(bits, 62), n, dtype=np.uint64)
             words = torch.from_numpy(ops.pack_words(bitpack(v, bits))).to(dev)
             got = ops.bitunpack(words, n, bits)
             m, e = _compare((got,), (ref.bitunpack_ref(words, n, bits),))
-            m += int((got.cpu().numpy() != v).sum())
-            r = res["bitunpack"]
-            r[0] += 1
-            r[1] += m
-            r[2] = max(r[2], e)
-    res["ivf_topk"] = [0, 0, 0.0]
+            tally("bitunpack", m + int((got.cpu().numpy() != v).sum()), e, n,
+                  (words, n, bits))
+    res["ivf_topk"][2] = 0.0
     ties = 0
     for q, c, ids, k, mask in ivf_cases(rng, dev):
         got = ops.ivf_topk_tensors(q, c, ids, k, mask)
         want = ref.ivf_topk_ref(q, c, ids, k, mask)
         m, e, g = compare_topk(got, want, ref.ivf_topk_scale(q, c))
-        r = res["ivf_topk"]
-        r[0] += 1
-        r[1] += m
-        r[2] = max(r[2], e)
+        tally("ivf_topk", m, e, c.numel(), (q, c, ids, k, mask))
         ties += g
     torch.cuda.synchronize()
     out = {k: {"cases": v[0], "mismatches": v[1], "max_abs_err": v[2]} for k, v in res.items()}
@@ -274,12 +362,13 @@ def sweep_phase():
     emit({"phase": "kernels", "tolerance": 0, "ivf_topk_rtol": RTOL, **out})
     for k, v in out.items():
         check(v["mismatches"] == 0, f"{k}: {v['mismatches']} mismatches against its plain version")
-    return out
+    return out, smallest
 
 
 def ivf_cases(rng, dev):
     """The ivf_topk sweep: the grid of the JAX package's parity test, with
-    and without a mask, then a tie across tiles and an exhaustion case."""
+    and without a mask, a tie across tiles, an exhaustion case, then the
+    hazards of the threshold filter (``ref.ivf_hazard_cases``)."""
     for dim in (3, 64, 128, 200):
         for nq, nc, k in ((1, 7, 3), (5, 300, 10), (9, 129, 1)):
             q = torch.from_numpy(rng.standard_normal((nq, dim)).astype(np.float32)).to(dev)
@@ -295,6 +384,11 @@ def ivf_cases(rng, dev):
     mask = torch.tensor([[1, 1, 1, 1, 1], [0, 1, 0, 1, 0], [0] * 5, [1, 0, 0, 0, 0]],
                         dtype=torch.uint8, device=dev)
     yield q, c, torch.arange(5, dtype=torch.int32, device=dev) * 11, 8, mask
+    for _, *case in ref.ivf_hazard_cases(rng):
+        q, c, ids, k, mask = case
+        yield (torch.from_numpy(q).to(dev), torch.from_numpy(c).to(dev),
+               torch.from_numpy(ids).to(dev), k,
+               None if mask is None else torch.from_numpy(mask).to(dev))
 
 
 def compare_topk(got, want, scale):
@@ -617,100 +711,127 @@ def bitunpack_path_phase(rng):
     return launches
 
 
-def measure_phase(largest, launches, sweep):
-    """Each kernel at the largest input its path gave it."""
-    out = []
-    size, a, kw = largest["miniblock_decode"]
-    rw, dw, vw, p = a
-    C, tile, vpe = vw.shape[0], kw["tile_entries"], kw.get("vpe", 1)
-    rb, db, fill = kw["rep_bits"], kw["def_bits"], kw.get("fill", 0)
-    got = ops.miniblock_decode(*a, **kw)
-    plain = lambda: ref.miniblock_decode_ref(rw, dw, vw, p[:, 0], p[:, 1], p[:, 2],  # noqa: E731
-                                             tile, rb, db, vpe, fill)
-    mism, err = _compare(got, plain())
-    bufs = [torch.empty_like(g) for g in got]
-    nbytes = (4 * ((rw.numel() if rb else 0) + (dw.numel() if db else 0) + vw.numel()
-                   + p.numel()) + sum(4 * g.numel() for g in got))
-    n_ops = sum(g.numel() for g in got)
-    out.append({
-        "name": "miniblock_decode",
-        "shape": {"chunks": C, "rep_words": rw.shape[1], "def_words": dw.shape[1],
-                  "val_words": vw.shape[1], "rep_bits": rb, "def_bits": db, "vpe": vpe,
-                  "tile_entries": tile, "fill": fill},
-        "ms": time_ms(lambda: ops.launch_miniblock_decode(
-            rw, dw, vw, p, *bufs, rep_bits=rb, def_bits=db, vpe=vpe, fill=fill)),
-        "plain_ms": time_ms(plain),
-        "library_ms": None,
-        "bytes": nbytes, "operations": n_ops, "ops_per_s": INT_OPS_PER_S,
-        "max_abs_err": err, "mismatches": mism})
-    size, a, kw = largest["fullzip_gather"]
-    zipped, rows = a
-    got = ops.fullzip_gather(zipped, rows)
-    mism, err = _compare((got,), (ref.fullzip_gather_ref(zipped, rows),))
-    buf = torch.empty_like(got)
-    n_take, stride = got.shape
-    n_unique = int(torch.unique(rows).numel())
-    out.append({
-        "name": "fullzip_gather",
-        "shape": {"n_rows": zipped.shape[0], "row_bytes": stride, "n_take": n_take,
-                  "unique_rows": n_unique},
-        "ms": time_ms(lambda: ops.launch_fullzip_gather(zipped, rows, buf)),
-        "plain_ms": time_ms(lambda: ref.fullzip_gather_ref(zipped, rows)),
-        "library_ms": time_ms(lambda: torch.index_select(zipped, 0, rows)),
-        "bytes": n_unique * stride + 4 * n_take + n_take * stride,
-        "operations": n_take * stride, "ops_per_s": INT_OPS_PER_S,
-        "max_abs_err": err, "mismatches": mism})
-    size, a, kw = largest["ivf_topk"]
-    q, c, ids, k = a[:4]
-    mask = a[4] if len(a) > 4 else kw.get("mask")
-    (qn, dim), n = q.shape, c.shape[0]
-    got = ops.ivf_topk_tensors(q, c, ids, k, mask)
-    mism, err, ties = compare_topk(got, ref.ivf_topk_ref(q, c, ids, k, mask),
-                                   ref.ivf_topk_scale(q, c))
-    bufs = [torch.empty_like(g) for g in got]
-    out.append({
-        "name": "ivf_topk",
-        "shape": {"queries": qn, "candidates": n, "dim": dim, "k": k,
-                  "mask": mask is not None},
-        "ms": time_ms(lambda: ops.launch_ivf_topk(q, c, ids, mask, *bufs)),
-        "plain_ms": time_ms(lambda: ref.ivf_topk_ref(q, c, ids, k, mask)),
-        "library_ms": None,
-        "bytes": 4 * n * dim + (qn * n if mask is not None else 0) + 4 * n
-        + 4 * qn * dim + 8 * qn * k,
-        "operations": 2 * qn * n * dim, "ops_per_s": FP32_FLOPS_PER_S,
-        "max_abs_err": err, "mismatches": mism, "near_tie_groups": ties})
-    size, a, kw = largest["bitunpack"]
+def kernel_case(name, a, kw):
+    """One kernel input as the measurement needs it: the kernel's launcher
+    on preallocated outputs (``ops.launch_*``, past the wrapper's checks),
+    its plain version, the one PyTorch call that computes the same function
+    (or None), a check against the plain version -> (mismatches, max |err|,
+    extra fields), its shape, and the bytes and operations of its bound."""
+    if name == "miniblock_decode":
+        rw, dw, vw, p = a
+        C, tile, vpe = vw.shape[0], kw["tile_entries"], kw.get("vpe", 1)
+        rb, db, fill = kw["rep_bits"], kw["def_bits"], kw.get("fill", 0)
+        got = ops.miniblock_decode(*a, **kw)
+        plain = lambda: ref.miniblock_decode_ref(rw, dw, vw, p[:, 0], p[:, 1], p[:, 2],  # noqa: E731
+                                                 tile, rb, db, vpe, fill)
+        bufs = [torch.empty_like(g) for g in got]
+        return {
+            "launch": lambda: ops.launch_miniblock_decode(
+                rw, dw, vw, p, *bufs, rep_bits=rb, def_bits=db, vpe=vpe, fill=fill),
+            "plain": plain, "library": None,
+            "check": lambda: (*_compare(got, plain()), {}),
+            "shape": {"chunks": C, "rep_words": rw.shape[1], "def_words": dw.shape[1],
+                      "val_words": vw.shape[1], "rep_bits": rb, "def_bits": db, "vpe": vpe,
+                      "tile_entries": tile, "fill": fill},
+            "bytes": (4 * ((rw.numel() if rb else 0) + (dw.numel() if db else 0) + vw.numel()
+                           + p.numel()) + sum(4 * g.numel() for g in got)),
+            "operations": sum(g.numel() for g in got), "ops_per_s": INT_OPS_PER_S}
+    if name == "fullzip_gather":
+        zipped, rows = a
+        got = ops.fullzip_gather(zipped, rows)
+        buf = torch.empty_like(got)
+        n_take, stride = got.shape
+        n_unique = int(torch.unique(rows).numel())
+        return {
+            "launch": lambda: ops.launch_fullzip_gather(zipped, rows, buf),
+            "plain": lambda: ref.fullzip_gather_ref(zipped, rows),
+            "library": lambda: torch.index_select(zipped, 0, rows),
+            "check": lambda: (*_compare((got,), (ref.fullzip_gather_ref(zipped, rows),)), {}),
+            "shape": {"n_rows": zipped.shape[0], "row_bytes": stride, "n_take": n_take,
+                      "unique_rows": n_unique},
+            "bytes": n_unique * stride + 4 * n_take + n_take * stride,
+            "operations": n_take * stride, "ops_per_s": INT_OPS_PER_S}
+    if name == "ivf_topk":
+        q, c, ids, k = a[:4]
+        mask = a[4] if len(a) > 4 else kw.get("mask")
+        (qn, dim), n = q.shape, c.shape[0]
+        got = ops.ivf_topk_tensors(q, c, ids, k, mask)
+        bufs = [torch.empty_like(g) for g in got]
+
+        def check_topk():
+            mism, err, ties = compare_topk(got, ref.ivf_topk_ref(q, c, ids, k, mask),
+                                           ref.ivf_topk_scale(q, c))
+            return mism, err, {"near_tie_groups": ties}
+
+        return {
+            "launch": lambda: ops.launch_ivf_topk(q, c, ids, mask, *bufs),
+            "plain": lambda: ref.ivf_topk_ref(q, c, ids, k, mask), "library": None,
+            "check": check_topk,
+            "shape": {"queries": qn, "candidates": n, "dim": dim, "k": k,
+                      "mask": mask is not None},
+            "bytes": 4 * n * dim + (qn * n if mask is not None else 0) + 4 * n
+            + 4 * qn * dim + 8 * qn * k,
+            "operations": 2 * qn * n * dim, "ops_per_s": FP32_FLOPS_PER_S}
     words, n_vals, bits = a
     got = ops.bitunpack(words, n_vals, bits)
-    mism, err = _compare((got,), (ref.bitunpack_ref(words, n_vals, bits),))
     buf = torch.empty_like(got)
-    out.append({
-        "name": "bitunpack",
+    return {
+        "launch": lambda: ops.launch_bitunpack(words, buf, bits=bits),
+        "plain": lambda: ref.bitunpack_ref(words, n_vals, bits), "library": None,
+        "check": lambda: (*_compare((got,), (ref.bitunpack_ref(words, n_vals, bits),)), {}),
         "shape": {"values": n_vals, "bits": bits, "words": words.shape[0]},
-        "ms": time_ms(lambda: ops.launch_bitunpack(words, buf, bits=bits)),
-        "plain_ms": time_ms(lambda: ref.bitunpack_ref(words, n_vals, bits)),
-        "library_ms": None,
         "bytes": -(-n_vals * bits // 8) + 4 * n_vals,
-        "operations": n_vals, "ops_per_s": INT_OPS_PER_S,
-        "max_abs_err": err, "mismatches": mism})
-    for k in out:
-        bytes_ms = k["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = k["operations"] / k["ops_per_s"] * 1e3
-        k.update({"route": "cuda",
-                  "source": f"src/repro_torch/kernels/csrc/{k['name']}.cu",
-                  "replaces": KERNEL_REPLACES[k["name"]],
-                  "launches": sum(p[k["name"]] for p in launches.values()),
-                  "launches_by_path": {path: p[k["name"]] for path, p in launches.items()},
-                  "bound_ms": max(bytes_ms, ops_ms),
-                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                  "cases": sweep[k["name"]]["cases"] + 1,
-                  "mismatches": k["mismatches"] + sweep[k["name"]]["mismatches"]})
-        check(k["mismatches"] == 0, f"{k['name']}: disagrees with its plain version "
-              f"at the largest path shape")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path", "shape",
-            "bytes", "operations", "cases", "mismatches")
-    return [{key: k[key] for key in keys} for k in out]
+        "operations": n_vals, "ops_per_s": INT_OPS_PER_S}
+
+
+PATH_ORDER = {"take": 0, "search": 1, "bitunpack": 2}
+
+
+def measure_phase(probe, smallest, launches, sweep):
+    """Each kernel at the largest input each path (and search step) gave it:
+    back-to-back ``ms``, device-only ``graph_ms``, L2-cold ``cold_ms``, the
+    host ``launch_us`` at its smallest sweep input, its plain version's and
+    the PyTorch call's times, and its bound."""
+    out = []
+    names = list(WRAPPERS)
+    keys = sorted(probe.largest, key=lambda k: (names.index(k[0]), PATH_ORDER[k[1]],
+                                                k[2] or ""))
+    small = {name: kernel_case(name, *smallest[name][1:])["launch"] for name in names}
+    for key in keys:
+        name, path, step = key
+        _, a, kw = probe.largest[key]
+        case = kernel_case(name, a, kw)
+        mism, err, extra = case["check"]()
+        lib = case["library"]
+        bytes_ms = case["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = case["operations"] / case["ops_per_s"] * 1e3
+        rec = {
+            "name": name, "path": path, "step": step, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": KERNEL_REPLACES[name],
+            "launches": probe.launched[key],
+            "launches_by_path": {p: n[name] for p, n in launches.items()},
+            "max_abs_err": err,
+            "ms": time_ms(case["launch"]),
+            "graph_ms": graph_ms(case["launch"]),
+            "cold_ms": cold_ms(case["launch"]),
+            "launch_us": launch_us(small[name]),
+            "plain_ms": time_ms(case["plain"]),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": time_ms(lib) if lib else None,
+            "library_graph_ms": graph_ms(lib) if lib else None,
+            "shape": case["shape"], "bytes": case["bytes"],
+            "operations": case["operations"],
+            "cases": sweep[name]["cases"] + 1,
+            "mismatches": mism + sweep[name]["mismatches"], **extra}
+        del case
+        check(mism == 0, f"{name} ({path}{' ' + step if step else ''}): disagrees with its "
+              "plain version at the largest path shape")
+        out.append(rec)
+    for name in names:
+        check(any(r["name"] == name for r in out), f"{name}: no main-path input to measure")
+    return out
 
 
 def main() -> int:
@@ -726,16 +847,23 @@ def main() -> int:
     t0 = time.perf_counter()
     device_phase()
     build_phase()
-    sweep = sweep_phase()
+    sweep, smallest = sweep_phase()
     rng = np.random.default_rng(args.seed)
     table, files = dataset_phase(rng)
     probe = Probe()
+    probe.path = "take"
     launches = {"take": take_path_phase(table, files, rng, probe)}
+    probe.path = "search"
     launches["search"] = search_path_phase(table, files, rng, probe)
     del files
+    probe.path = "bitunpack"
     launches["bitunpack"] = bitunpack_path_phase(rng)
     probe.restore()
-    kernels = measure_phase(probe.largest, launches, sweep)
+    for path, counts in launches.items():
+        for name, n in counts.items():
+            seen = sum(v for (k, p, _), v in probe.launched.items() if (k, p) == (name, path))
+            check(seen == n, f"{name} on the {path} path: the probe saw {seen} of {n} launches")
+    kernels = measure_phase(probe, smallest, launches, sweep)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

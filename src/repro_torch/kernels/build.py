@@ -4,9 +4,9 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 into its own shared library for ``sm_90a`` (Hopper), then loaded with
 ``ctypes``.  All sources compile at once, one ``nvcc`` process each.  The
 libraries land in ``build/repro_torch_kernels/`` at the repository root,
-named by a hash of the sources and flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is.  Nothing is built at import: the first
-kernel launch builds.
+named by a hash of the source, the shared headers and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.  Nothing
+is built at import: the first kernel launch builds.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
-__all__ = ["load_kernels", "build_kernels", "SOURCES", "BUILD_DIR",
+__all__ = ["load_kernels", "build_kernels", "SOURCES", "HEADERS", "BUILD_DIR",
            "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -36,13 +36,16 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRY = {
     "miniblock_decode.cu": ("miniblock_decode_launch",
                             [_P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "fullzip_gather.cu": ("fullzip_gather_launch", [_P, _P, _P, _I, _I, _P]),
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "fullzip_gather.cu": ("fullzip_gather_launch",
+                          [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P]),
     "ivf_topk.cu": ("ivf_topk_launch",
                     [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _P]),
-    "bitunpack.cu": ("bitunpack_launch", [_P, _P, _L, _I, _I, _P]),
+                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "bitunpack.cu": ("bitunpack_launch", [_P, _P, _L, _I, _I, _I, _P]),
 }
+# headers every source may include; a change to one rebuilds them all
+HEADERS = ("device_guard.cuh",)
 
 _lock = threading.Lock()
 _loaded: Optional["Kernels"] = None
@@ -74,7 +77,8 @@ def _nvcc() -> str:
 
 def _lib_path(src: str) -> Path:
     h = hashlib.sha256()
-    h.update((CSRC / src).read_bytes())
+    for f in (src, *HEADERS):
+        h.update((CSRC / f).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(src).stem}-{h.hexdigest()[:16]}.so"
 

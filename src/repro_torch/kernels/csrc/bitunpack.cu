@@ -21,6 +21,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -41,13 +43,14 @@ bitunpack_kernel(const uint32_t* __restrict__ words, uint32_t* __restrict__ out,
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream` of `device`; returns cudaGetLastError() (0 on success).
 extern "C" int bitunpack_launch(const void* words, void* out, long long n, int n_words,
-                                int bits, void* stream) {
+                                int bits, int device, void* stream) {
   if (n <= 0 || n_words <= 0 || bits < 1 || bits > 32)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
   bitunpack_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<uint32_t*>(out), n,

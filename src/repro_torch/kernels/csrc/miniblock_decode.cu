@@ -32,6 +32,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -129,19 +131,20 @@ miniblock_decode_kernel(const uint32_t* __restrict__ rep_words,
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
+// Launch on `stream` of `device`; returns cudaGetLastError() (0 on success).
 extern "C" int miniblock_decode_launch(const void* rep_words, const void* def_words,
                                        const void* val_words, const void* params,
                                        void* out_rep, void* out_def, void* out_val,
                                        int C, int RW, int DW, int VW, int rep_bits,
                                        int def_bits, int vpe, int tile, int fill,
-                                       void* stream) {
+                                       int device, void* stream) {
   if (C <= 0 || RW <= 0 || DW <= 0 || VW <= 0 || vpe <= 0 || tile <= 0 ||
       rep_bits < 0 || rep_bits > 31 || def_bits < 0 || def_bits > 31)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(uint32_t) *
       (static_cast<size_t>(rep_bits ? RW : 0) + (def_bits ? DW : 0) + VW + tile);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         miniblock_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -19,6 +19,7 @@ Counters, read by tests and ``chip_smoke.py``:
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict
 
 import numpy as np
@@ -48,6 +49,8 @@ __all__ = [
     "MAX_TILE_VALUES",
     "IVF_K_MAX",
     "IVF_ID_SENTINEL",
+    "fullzip_plan",
+    "ivf_plan",
 ]
 
 MAX_ENTRIES = 4096  # the format's per-chunk value ceiling (sec 4.2.1)
@@ -56,10 +59,25 @@ MAX_TILE_VALUES = 1 << 17  # tile_entries * vpe ceiling the readers keep to
 # at least four k-long lists at once in its 4,096-pair buffer)
 IVF_K_MAX = 1024
 IVF_ID_SENTINEL = ref.IVF_ID_SENTINEL
-# csrc/ivf_topk.cu's kTile (candidates per scoring CTA) and kSort (pairs per
-# merge CTA); the launcher sizes the per-tile lists with them and the
-# kernel refuses a launch whose values differ from its own
-_IVF_TILE, _IVF_SORT = 512, 4096
+# csrc/ivf_topk.cu's constants, which ivf_plan sizes a launch with (the
+# kernel refuses a plan that does not fit them): rows per tile (one per
+# thread), floats per stage of the candidate ring (a 256 x 36 padded chunk
+# and a 32 x 8 query chunk), ring depths, queries per group, the dynamic
+# shared memory a block may take, and the pairs a merge CTA sorts
+_IVF_TILE, _IVF_STAGE_FLOATS = 256, 256 * 36 + 32 * 8
+_IVF_MIN_STAGES, _IVF_MAX_STAGES, _IVF_QMAX = 2, 4, 8
+_IVF_SMEM = 227 * 1024 - 1024
+_IVF_SORT = 4096
+# csrc/fullzip_gather.cu's ring: slot bytes, slots per block, rows per unit
+# at most, and the persistent blocks per SM of each route
+_GATHER_STAGE_BYTES, _GATHER_STAGES, _GATHER_MAX_ROWS = 16384, 4, 32
+_GATHER_BLOCKS_PER_SM = {"bulk": 3, "register": 16}
+_GATHER_ROUTES = {"bulk": 0, "register": 1}
+# the bulk route's work-ticket counters (csrc/fullzip_gather.cu): launches
+# that may overlap need different ones, so each (device, stream) gets its own
+_GATHER_TICKET_SLOTS = 64
+_gather_slots: Dict[tuple, int] = {}
+_gather_slots_lock = threading.Lock()
 
 launches: Dict[str, int] = {"miniblock_decode": 0, "fullzip_gather": 0,
                             "ivf_topk": 0, "bitunpack": 0}
@@ -130,8 +148,32 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream (the capture stream
+    while a CUDA graph is captured).  ``torch.cuda.current_stream`` builds a
+    Stream object on every call, which costs the host more than the launch
+    itself; this is the lookup Triton's launcher uses."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_kernels = None
+_sms: Dict[int, int] = {}
+
+
+def _lib():
+    """The loaded kernel libraries (built and loaded on the first call)."""
+    global _kernels
+    if _kernels is None:
+        from .build import load_kernels
+
+        _kernels = load_kernels()
+    return _kernels
+
+
+def _sm_count(index: int) -> int:
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -200,16 +242,13 @@ def launch_miniblock_decode(rep_words, def_words, val_words, params,
                             def_bits: int, vpe: int, fill: int) -> None:
     """Launch the ``miniblock_decode`` kernel on tensors the wrapper has
     checked (contiguous, on one CUDA device, at least one chunk)."""
-    from .build import load_kernels
-
     dev = val_words.device
-    with torch.cuda.device(dev):
-        err = load_kernels().miniblock_decode_launch(
-            _ptr(rep_words), _ptr(def_words), _ptr(val_words), _ptr(params),
-            _ptr(out_rep), _ptr(out_def), _ptr(out_val),
-            val_words.shape[0], rep_words.shape[1], def_words.shape[1],
-            val_words.shape[1], rep_bits, def_bits, vpe, out_rep.shape[1],
-            int(fill), _stream(dev))
+    err = _lib().miniblock_decode_launch(
+        _ptr(rep_words), _ptr(def_words), _ptr(val_words), _ptr(params),
+        _ptr(out_rep), _ptr(out_def), _ptr(out_val),
+        val_words.shape[0], rep_words.shape[1], def_words.shape[1],
+        val_words.shape[1], rep_bits, def_bits, vpe, out_rep.shape[1],
+        int(fill), dev.index, _stream(dev))
     _raise_on(err, "miniblock_decode")
     launches["miniblock_decode"] += 1
 
@@ -223,8 +262,10 @@ def fullzip_gather(zipped: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     _check(rows, "rows", torch.int32, 1, dev)
     n_rows, stride = zipped.shape
     n_take = rows.shape[0]
-    if n_take and (int(rows.min()) < 0 or int(rows.max()) >= n_rows):
-        raise IndexError(f"gather rows out of bounds for {n_rows} rows")
+    if n_take:
+        lo, hi = torch.stack(torch.aminmax(rows)).tolist()  # one host read
+        if lo < 0 or hi >= n_rows:
+            raise IndexError(f"gather rows out of bounds for {n_rows} rows")
     if dev.type == "cpu":
         return ref.fullzip_gather_ref(zipped, rows)
     zipped, rows = zipped.contiguous(), rows.contiguous()
@@ -234,16 +275,56 @@ def fullzip_gather(zipped: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def fullzip_plan(n_take: int, stride: int, zipped_ptr: int, out_ptr: int,
+                 sms: int) -> Dict[str, int]:
+    """How ``csrc/fullzip_gather.cu`` runs a gather: ``route`` "bulk" (bulk
+    asynchronous copies through the shared-memory ring) when the stride and
+    both base addresses are multiples of 16 bytes, else "register" with the
+    widest ``word`` (16, 8, 4, 2 or 1 bytes) dividing all three; ``units``,
+    the bulk route's slots of whole rows (or row chunks where a row exceeds
+    a slot), or rows on the register route; ``grid``, persistent blocks
+    (a few per SM, no more than units)."""
+    align = zipped_ptr | out_ptr | stride
+    word = 16
+    while align % word:
+        word //= 2
+    if word == 16:
+        route = "bulk"
+        if stride <= _GATHER_STAGE_BYTES:
+            per = min(_GATHER_MAX_ROWS, _GATHER_STAGE_BYTES // stride)
+            units = -(-n_take // per)
+        else:
+            units = n_take * -(-stride // _GATHER_STAGE_BYTES)
+    else:
+        route, units = "register", n_take
+    grid = max(1, min(units, sms * _GATHER_BLOCKS_PER_SM[route]))
+    return {"route": route, "word": word, "units": units, "grid": grid}
+
+
+def fullzip_gather_slot(device_index: int, stream: int) -> int:
+    """The work-ticket counter of the gather's bulk route that launches on
+    ``stream`` of a device use: one per stream (launches on one stream run
+    one after another), the 64 counters shared round-robin past 64 streams."""
+    key = (device_index, stream)
+    slot = _gather_slots.get(key)
+    if slot is None:
+        with _gather_slots_lock:  # two new streams must not share a slot
+            slot = _gather_slots.setdefault(key, len(_gather_slots) % _GATHER_TICKET_SLOTS)
+    return slot
+
+
 def launch_fullzip_gather(zipped, rows, out) -> None:
     """Launch the ``fullzip_gather`` kernel on tensors the wrapper has
     checked (contiguous, on one CUDA device, row ids in range, non-empty)."""
-    from .build import load_kernels
-
     dev = zipped.device
-    with torch.cuda.device(dev):
-        err = load_kernels().fullzip_gather_launch(
-            _ptr(zipped), _ptr(rows), _ptr(out), rows.shape[0], zipped.shape[1],
-            _stream(dev))
+    n_take, stride = out.shape
+    plan = fullzip_plan(n_take, stride, zipped.data_ptr(), out.data_ptr(),
+                        _sm_count(dev.index))
+    stream = _stream(dev)
+    err = _lib().fullzip_gather_launch(
+        _ptr(zipped), _ptr(rows), _ptr(out), n_take, stride,
+        _GATHER_ROUTES[plan["route"]], plan["word"], plan["grid"],
+        fullzip_gather_slot(dev.index, stream), dev.index, stream)
     _raise_on(err, "fullzip_gather")
     launches["fullzip_gather"] += 1
 
@@ -274,13 +355,10 @@ def bitunpack(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:
 def launch_bitunpack(words, out, *, bits: int) -> None:
     """Launch the ``bitunpack`` kernel on tensors the wrapper has checked
     (contiguous, on one CUDA device, at least one value)."""
-    from .build import load_kernels
-
     dev = words.device
-    with torch.cuda.device(dev):
-        err = load_kernels().bitunpack_launch(
-            _ptr(words), _ptr(out), out.shape[0], words.shape[0], bits,
-            _stream(dev))
+    err = _lib().bitunpack_launch(
+        _ptr(words), _ptr(out), out.shape[0], words.shape[0], bits, dev.index,
+        _stream(dev))
     _raise_on(err, "bitunpack")
     launches["bitunpack"] += 1
 
@@ -320,27 +398,64 @@ def ivf_topk_tensors(queries: torch.Tensor, cands: torch.Tensor,
     return out_d, out_i
 
 
+def ivf_plan(Q: int, N: int, k: int, sms: int) -> Dict[str, int]:
+    """How ``csrc/ivf_topk.cu`` runs a ``(Q, N)`` top-k: ``qg`` queries per
+    group (a power of two up to 8) in ``groups`` groups; ``blocks`` score
+    blocks per group, about one per SM in all, of ``tiles_per_block``
+    256-row tiles each (every block gets at least one); survivor buffers of
+    ``buf`` pairs per query (a power of two >= k + 256: k kept pairs and one
+    tile's survivors); the ring ``stages`` that fit beside them (2..4);
+    ``smem``, the dynamic shared memory of a score block; and the merge
+    passes that reduce ``blocks`` lists per query to one, ``fan_in`` lists
+    at a time, with the pairs of the two list buffers they ping-pong
+    between (``list_a_pairs``, ``list_b_pairs``; none with one block, which
+    writes the final rows itself)."""
+    if not (Q >= 1 and N >= 1 and 1 <= k <= IVF_K_MAX and sms >= 1):
+        raise ValueError(f"no plan for Q={Q}, N={N}, k={k}, sms={sms}")
+    qg = 1
+    while qg < min(Q, _IVF_QMAX):
+        qg *= 2
+    groups = -(-Q // qg)
+    tiles = -(-N // _IVF_TILE)
+    per_block = -(-tiles // min(tiles, max(1, sms // groups)))
+    blocks = -(-tiles // per_block)
+    buf = 1
+    while buf < k + _IVF_TILE:
+        buf *= 2
+    stages = min(_IVF_MAX_STAGES,
+                 (_IVF_SMEM - 8 * qg * buf) // (4 * _IVF_STAGE_FLOATS))
+    if stages < _IVF_MIN_STAGES:
+        raise ValueError(f"k={k} leaves no room for the candidate ring")
+    fan_in = _IVF_SORT // k
+    passes, lists = 0, blocks
+    while lists > 1:
+        lists = -(-lists // fan_in)
+        passes += 1
+    return {"qg": qg, "groups": groups, "blocks": blocks,
+            "tiles_per_block": per_block, "buf": buf, "stages": stages,
+            "smem": 4 * stages * _IVF_STAGE_FLOATS + 8 * qg * buf,
+            "fan_in": fan_in, "merge_passes": passes,
+            "list_a_pairs": Q * blocks * k if blocks > 1 else 0,
+            "list_b_pairs": Q * -(-blocks // fan_in) * k if passes > 1 else 0}
+
+
 def launch_ivf_topk(queries, cands, ids, mask, out_d, out_i) -> None:
     """Launch the ``ivf_topk`` kernel (a scoring pass, then merge passes
     until one list per query is left) on tensors the wrapper has checked;
-    allocates the per-tile lists it merges."""
-    from .build import load_kernels
-
+    allocates the per-block lists it merges."""
     dev = queries.device
     (qn, dim), n, k = queries.shape, cands.shape[0], out_d.shape[1]
-    n_tiles = -(-n // _IVF_TILE)
-    fan_in = _IVF_SORT // k
-    lists = [torch.empty((qn * n_tiles * k,), dtype=torch.int64, device=dev),
-             torch.empty((qn * -(-n_tiles // fan_in) * k,), dtype=torch.int64,
-                         device=dev)]
+    plan = ivf_plan(qn, n, k, _sm_count(dev.index))
+    lists = [torch.empty((max(1, plan[f"list_{x}_pairs"]),), dtype=torch.int64,
+                         device=dev) for x in "ab"]
     nan_flags = torch.empty(qn, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = load_kernels().ivf_topk_launch(
-            _ptr(queries), _ptr(cands), _ptr(ids),
-            ctypes.c_void_p(mask.data_ptr() if mask is not None else 0),
-            _ptr(nan_flags), _ptr(lists[0]), _ptr(lists[1]),
-            _ptr(out_d), _ptr(out_i), qn, n, dim, k, _IVF_TILE, _IVF_SORT,
-            _stream(dev))
+    err = _lib().ivf_topk_launch(
+        _ptr(queries), _ptr(cands), _ptr(ids),
+        ctypes.c_void_p(mask.data_ptr() if mask is not None else 0),
+        _ptr(nan_flags), _ptr(lists[0]), _ptr(lists[1]),
+        _ptr(out_d), _ptr(out_i), qn, n, dim, k, plan["qg"], plan["blocks"],
+        plan["tiles_per_block"], plan["buf"], plan["stages"], dev.index,
+        _stream(dev))
     _raise_on(err, "ivf_topk")
     launches["ivf_topk"] += 1
 

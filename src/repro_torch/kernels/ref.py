@@ -19,7 +19,7 @@ import torch
 
 __all__ = ["bitunpack_ref", "miniblock_decode_ref", "fullzip_gather_ref",
            "ivf_topk_ref", "ivf_topk_mismatches", "ivf_topk_scale", "miniblock_case",
-           "IVF_ID_SENTINEL"]
+           "gather_cases", "ivf_hazard_cases", "at_offset", "IVF_ID_SENTINEL"]
 
 _U32 = 0xFFFFFFFF
 
@@ -221,7 +221,9 @@ def ivf_topk_scale(queries, cands) -> np.ndarray:
     candidate next to its query has a distance far below it."""
     q = np.asarray(queries.cpu() if torch.is_tensor(queries) else queries, np.float64)
     c = np.asarray(cands.cpu() if torch.is_tensor(cands) else cands, np.float64)
-    cc = (c * c).sum(1).max() if len(c) else 0.0
+    norms = (c * c).sum(1)
+    # a NaN row scores NaN whatever the tolerance: size the terms without it
+    cc = np.nanmax(norms) if np.isfinite(norms).any() else 0.0
     return (q * q).sum(1) + cc
 
 
@@ -258,3 +260,79 @@ def miniblock_case(rng: np.random.Generator, rep_bits: int, def_bits: int, vpe: 
         val_words[c, : len(w)] = w
         params[c] = [n, bits, int(rng.integers(*ref_range))]
     return rep_words, def_words, val_words, params
+
+
+def at_offset(a: np.ndarray, device, offset: int = 0) -> torch.Tensor:
+    """``a`` as a contiguous tensor on ``device`` whose data starts ``offset``
+    bytes past an allocation's (aligned) base: a sliced view, as a reader
+    hands out a window of a larger buffer."""
+    a = np.ascontiguousarray(a)
+    flat = torch.empty(a.nbytes + offset, dtype=torch.uint8, device=device)
+    view = flat[offset:].view(torch.from_numpy(a[:0]).dtype).view(a.shape)
+    view.copy_(torch.from_numpy(a))
+    return view
+
+
+def gather_cases(rng: np.random.Generator, n_rows: int = 300):
+    """The ``fullzip_gather`` sweep as numpy inputs ``(label, zipped, rows,
+    offset)``: strides from 1 byte to rows larger than a 16 KB ring slot,
+    ``n_take`` of 0, 1, a few, and not a multiple of any stage depth, one
+    heavily duplicated request, and ``zipped`` views whose base sits
+    ``offset`` bytes past an aligned one."""
+    for stride in (1, 8, 16, 24, 33, 129, 136, 512, 1536, 16400, 40000):
+        zipped = rng.integers(0, 256, (n_rows, stride), dtype=np.uint8)
+        for n_take in (0, 1, 7, 64, 1000, 1001):
+            rows = rng.integers(0, n_rows, n_take).astype(np.int32)
+            yield f"stride={stride} n_take={n_take}", zipped, rows, 0
+    zipped = rng.integers(0, 256, (n_rows, 1536), dtype=np.uint8)
+    yield "one row 5,000 times", zipped, np.full(5000, 5, np.int32), 0
+    for stride in (129, 1536):
+        zipped = rng.integers(0, 256, (n_rows, stride), dtype=np.uint8)
+        rows = rng.integers(0, n_rows, 257).astype(np.int32)
+        for offset in (1, 4, 8, 16):
+            yield f"stride={stride} base+{offset}", zipped, rows, offset
+
+
+def ivf_hazard_cases(rng: np.random.Generator, n: int = 40_000, dim: int = 64):
+    """Inputs that stress ``ivf_topk``'s running threshold and per-block
+    lists, as numpy ``(label, queries, cands, ids, k, mask)``: candidates in
+    descending distance (each one beats the threshold, so the survivor
+    buffer fills on every tile), equal (distance, id) pairs half the matrix
+    apart (in different blocks), queries with no or few eligible
+    candidates, a NaN row eligible for some queries only, and candidate
+    counts below a block and off any tile multiple, at k = 1, 10, 64, 256
+    and 1,024."""
+    dirs = rng.standard_normal((n, dim))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    radius = 1.0 + np.arange(n, 0, -1) / n
+    desc = (dirs * radius[:, None]).astype(np.float32)
+    ids = np.arange(n, dtype=np.int32)
+    for k in (1, 10, 64, 256, 1024):
+        yield (f"descending k={k}", np.zeros((3, dim), np.float32), desc, ids, k,
+               None)
+    half = rng.standard_normal((n // 2, dim)).astype(np.float32)
+    dup = np.concatenate([half, half])
+    dup_ids = np.concatenate([ids[: n // 2], ids[: n // 2]])
+    q = rng.standard_normal((5, dim)).astype(np.float32)
+    for k in (10, 64):
+        yield f"duplicates k={k}", q, dup, dup_ids, k, None
+    mask = rng.integers(0, 2, (4, n)).astype(np.uint8)
+    mask[1] = 0
+    mask[2] = 0
+    mask[2, rng.choice(n, 5, replace=False)] = 1
+    c = rng.standard_normal((n, dim)).astype(np.float32)
+    for k in (10, 256):
+        yield (f"no / 5 eligible k={k}", rng.standard_normal((4, dim)).astype(np.float32),
+               c, rng.permutation(n).astype(np.int32), k, mask)
+    c = rng.standard_normal((1900, dim)).astype(np.float32)
+    c[5, 0] = np.nan
+    nan_mask = np.ones((3, 1900), np.uint8)
+    nan_mask[0, 5] = 0
+    yield ("NaN row eligible for queries 1 and 2 k=7", rng.standard_normal((3, dim)).astype(np.float32),
+           c, np.arange(1900, dtype=np.int32), 7, nan_mask)
+    for n_small in (1, 7, 255, 257, 1001):
+        q = rng.standard_normal((9, dim)).astype(np.float32)
+        cs = rng.standard_normal((n_small, dim)).astype(np.float32)
+        for k in (1, 10, 1024):
+            yield (f"N={n_small} k={k}", q, cs, rng.permutation(n_small).astype(np.int32),
+                   k, None)

@@ -47,16 +47,49 @@ def test_cuda_miniblock_decode_matches_plain(cuda_device, rep_bits, def_bits, vp
         assert torch.equal(w, g)
 
 
-@pytest.mark.parametrize("stride", [1, 8, 33, 129, 1536])
-def test_cuda_fullzip_gather_matches_plain(cuda_device, stride):
-    rng = np.random.default_rng(stride)
+@pytest.mark.parametrize("stride", [1, 8, 16, 33, 129, 1536, 16400, 40000])
+@pytest.mark.parametrize("n_take", [1, 7, 257, 1001])
+def test_cuda_fullzip_gather_matches_plain(cuda_device, stride, n_take):
+    """Both routes (bulk for 16-byte strides, register otherwise), rows
+    larger than a ring slot, n_take below the SM count and off any stage
+    depth."""
+    rng = np.random.default_rng(stride + n_take)
     zipped = torch.from_numpy(rng.integers(0, 256, (300, stride), dtype=np.uint8)).to(cuda_device)
-    rows = torch.from_numpy(rng.integers(0, 300, 257).astype(np.int32)).to(cuda_device)
+    rows = torch.from_numpy(rng.integers(0, 300, n_take).astype(np.int32)).to(cuda_device)
     n0 = ops.launches["fullzip_gather"]
     got = ops.fullzip_gather(zipped, rows)
     torch.cuda.synchronize()
     assert ops.launches["fullzip_gather"] == n0 + 1
     assert torch.equal(got, ref.fullzip_gather_ref(zipped, rows))
+
+
+@pytest.mark.parametrize("stride", [129, 1536])
+@pytest.mark.parametrize("offset", [1, 4, 8, 16])
+def test_cuda_fullzip_gather_misaligned_views(cuda_device, stride, offset):
+    """A zipped view whose base is not 16-byte aligned takes the register
+    route with the widest word its addresses allow, byte for byte."""
+    rng = np.random.default_rng(offset)
+    zipped = ref.at_offset(rng.integers(0, 256, (300, stride), dtype=np.uint8), cuda_device,
+                           offset)
+    assert zipped.data_ptr() % 16 == offset % 16
+    rows = torch.from_numpy(rng.integers(0, 300, 257).astype(np.int32)).to(cuda_device)
+    assert torch.equal(ops.fullzip_gather(zipped, rows), ref.fullzip_gather_ref(zipped, rows))
+
+
+def test_cuda_fullzip_gather_heavy_duplication(cuda_device):
+    rng = np.random.default_rng(9)
+    zipped = torch.from_numpy(rng.integers(0, 256, (300, 1536), dtype=np.uint8)).to(cuda_device)
+    for rows in (np.full(5000, 5, np.int32), np.tile(np.arange(3, dtype=np.int32), 3001)):
+        rows = torch.from_numpy(rows).to(cuda_device)
+        assert torch.equal(ops.fullzip_gather(zipped, rows), ref.fullzip_gather_ref(zipped, rows))
+
+
+def test_cuda_fullzip_gather_sweep(cuda_device):
+    """chip_smoke.py's gather sweep (ref.gather_cases), tolerance 0."""
+    for label, zipped, rows, offset in ref.gather_cases(np.random.default_rng(0)):
+        z = ref.at_offset(zipped, cuda_device, offset)
+        r = torch.from_numpy(rows).to(cuda_device)
+        assert torch.equal(ops.fullzip_gather(z, r), ref.fullzip_gather_ref(z, r)), label
 
 
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
@@ -65,6 +98,8 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
         ops.fullzip_gather(z, torch.tensor([5], dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError):  # mixed devices are refused, not copied
         ops.fullzip_gather(z, torch.tensor([1], dtype=torch.int32))
+    with pytest.raises(IndexError):  # the one host read sees a bad id anywhere
+        ops.fullzip_gather(z, torch.tensor([0, 4, -1, 2], dtype=torch.int32, device=cuda_device))
     n0 = dict(ops.launches)
     assert ops.fullzip_gather(z, torch.zeros(0, dtype=torch.int32, device=cuda_device)).shape == (0, 16)
     assert ops.launches == n0  # an empty gather launches nothing
@@ -154,3 +189,32 @@ def test_cuda_ivf_topk_search_route_launches_the_kernel(cuda_device):
     ops.ivf_topk(q.astype(np.float64), c, np.arange(900), 3, device=cuda_device)
     assert ops.launches["ivf_topk"] == 1  # a counted fallback runs on the host
     assert ops.fallbacks == {"decode.fallback.ivf.non-float32": 1}
+
+
+_HAZARDS = [label for label, *_ in ref.ivf_hazard_cases(np.random.default_rng(0), n=16, dim=2)]
+
+
+@pytest.mark.parametrize("index", range(len(_HAZARDS)), ids=_HAZARDS)
+def test_cuda_ivf_topk_threshold_hazards(cuda_device, index):
+    """The threshold filter's hazards (ref.ivf_hazard_cases): candidates in
+    descending distance, duplicate pairs in different blocks, queries with
+    no or few eligible candidates, N below a block and off any tile, at
+    k = 1, 10, 64, 256 and 1,024."""
+    cases = ref.ivf_hazard_cases(np.random.default_rng(0))
+    label, q, c, ids, k, mask = next(x for i, x in enumerate(cases) if i == index)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (q, c, ids)]
+    m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    d, w = ops.ivf_topk_tensors(*t, k, m)
+    wd, ww = ref.ivf_topk_ref(*t, k, m)
+    mism, _ = ref.ivf_topk_mismatches(d.cpu().numpy(), w.cpu().numpy(), wd.cpu().numpy(),
+                                      ww.cpu().numpy(), scale=ref.ivf_topk_scale(q, c))
+    assert mism == 0, label
+    if label.startswith("descending"):  # the k nearest are the last k rows
+        assert w[0].cpu().tolist() == list(range(len(c) - 1, len(c) - 1 - min(k, len(c)), -1))
+    if label.startswith("NaN row"):  # it poisons the queries it is eligible for
+        assert torch.isnan(d[1:]).all() and (w[1:] == ops.IVF_ID_SENTINEL).all()
+        assert torch.isfinite(d[0]).all()
+    if label.startswith("no / 5 eligible"):
+        assert (w[1] == ops.IVF_ID_SENTINEL).all() and torch.isinf(d[1]).all()
+        assert (w[2, :5] != ops.IVF_ID_SENTINEL).all()
+        assert (w[2, 5:] == ops.IVF_ID_SENTINEL).all()

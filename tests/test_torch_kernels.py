@@ -122,6 +122,11 @@ def test_kernel_sources_declare_their_entry_points():
         assert len(m.group(1).split(",")) == len(argtypes)
         assert "Replaces the TPU kernel src/repro/kernels/" in text
         assert "What bounds it:" in text
+        # each launcher takes the device index before the stream
+        assert [a.strip() for a in m.group(1).split(",")[-2:]] == ["int device",
+                                                                   "void* stream"]
+    for header in build.HEADERS:
+        assert (build.CSRC / header).exists()
 
 
 # ---------------------------------------------------------------------------
@@ -325,14 +330,145 @@ def test_ivf_topk_tensors_rejects_bad_inputs():
         ops.ivf_topk_tensors(q, c[:0], ids[:0], 1)
 
 
+def _cu_constants(src: str) -> dict:
+    """``{name: value text}`` of a CUDA source's ``constexpr int`` constants
+    (``"_text"``: the source)."""
+    text = (build.CSRC / src).read_text()
+    out = {"_text": text}
+    for decl in re.finditer(r"constexpr int ([^;]+);", text):
+        for part in decl.group(1).split(","):
+            name, value = part.split("=")
+            out[name.strip()] = value.strip()
+    return out
+
+
 def test_ivf_kernel_constants_match_the_launcher():
-    """The launcher sizes the kernel's per-tile lists with csrc/ivf_topk.cu's
-    tile and sort sizes, and IVF_K_MAX is what the kernel accepts."""
-    text = (build.CSRC / "ivf_topk.cu").read_text()
-    tile = int(re.search(r"constexpr int kTile = (\d+);", text).group(1))
-    sort = int(re.search(r"constexpr int kSort = (\d+);", text).group(1))
-    assert (tile, sort) == (ops._IVF_TILE, ops._IVF_SORT)
-    assert "4 * k > kSort" in text and ops.IVF_K_MAX == sort // 4
+    """ivf_plan sizes a launch with csrc/ivf_topk.cu's tile, stage, ring,
+    group, shared-memory and sort sizes, and IVF_K_MAX is what the kernel
+    accepts."""
+    c = _cu_constants("ivf_topk.cu")
+    rows, chunk, qmax = int(c["kThreads"]), int(c["kChunk"]), int(c["kQMax"])
+    assert c["kTileRows"] == "kThreads" and c["kRowStride"] == "kChunk + 4"
+    assert c["kStageFloats"] == "kTileRows * kRowStride + kChunk * kQMax"
+    assert (rows, qmax) == (ops._IVF_TILE, ops._IVF_QMAX)
+    assert ops._IVF_STAGE_FLOATS == rows * (chunk + 4) + chunk * qmax
+    assert (int(c["kMinStages"]), int(c["kMaxStages"])) == (ops._IVF_MIN_STAGES,
+                                                          ops._IVF_MAX_STAGES)
+    assert c["kSmemMax"] == "227 * 1024" and ops._IVF_SMEM == 227 * 1024 - 1024
+    assert "smem > kSmemMax - 1024" in c["_text"]
+    assert int(c["kSort"]) == ops._IVF_SORT
+    assert "4 * k > kSort" in c["_text"] and ops.IVF_K_MAX == ops._IVF_SORT // 4
+
+
+def test_gather_kernel_constants_match_the_launcher():
+    c = _cu_constants("fullzip_gather.cu")
+    assert (int(c["kStageBytes"]), int(c["kStages"]), int(c["kMaxRowsPerUnit"])) == (
+        ops._GATHER_STAGE_BYTES, ops._GATHER_STAGES, ops._GATHER_MAX_ROWS)
+    assert {"bulk": int(c["kRouteBulk"]), "register": int(c["kRouteRegister"])} == \
+        ops._GATHER_ROUTES
+    assert int(c["kTicketSlots"]) == ops._GATHER_TICKET_SLOTS
+    # the bulk ring of the blocks an SM holds fits its 228 KB of shared memory
+    per_block = ops._GATHER_STAGES * ops._GATHER_STAGE_BYTES + 1024
+    assert ops._GATHER_BLOCKS_PER_SM["bulk"] * per_block <= 228 * 1024
+
+
+_PLAN_NS = sorted({*range(1, 300), *(2 ** e + d for e in range(9, 22) for d in (-1, 0, 1)),
+                   694_907, 1_048_576, 133_003})
+
+
+@pytest.mark.parametrize("qn", [1, 4, 8, 9])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_ivf_plan_covers_every_k_and_n(qn, sms):
+    """ivf_plan is a pure function of (Q, N, k, SM count) whose plan the
+    kernel accepts, for every k <= IVF_K_MAX and N from 1 to 2**21: every
+    block gets at least one 256-row tile and the tiles are covered; about
+    one block per SM; survivor buffers hold k kept pairs plus a tile; the
+    ring fits beside them; the merge passes end with one list per query
+    and the list buffers hold every pass."""
+    for k in range(1, ops.IVF_K_MAX + 1):
+        for n in _PLAN_NS:
+            p = ops.ivf_plan(qn, n, k, sms)
+            tiles = -(-n // 256)
+            assert p["qg"] in (1, 2, 4, 8) and p["qg"] >= min(qn, 8) > p["qg"] // 2
+            assert p["groups"] * p["qg"] >= qn > (p["groups"] - 1) * p["qg"]
+            assert p["blocks"] * p["tiles_per_block"] >= tiles
+            assert (p["blocks"] - 1) * p["tiles_per_block"] < tiles
+            assert p["blocks"] <= max(1, sms // p["groups"])
+            buf = p["buf"]
+            assert buf & (buf - 1) == 0 and k + 256 <= buf < 2 * (k + 256)
+            assert 2 <= p["stages"] <= 4
+            assert p["smem"] == 4 * p["stages"] * ops._IVF_STAGE_FLOATS + 8 * p["qg"] * buf
+            assert p["smem"] <= ops._IVF_SMEM
+            # the score pass writes list a; pass i writes list b, a, b, ...
+            # (the last pass writes the output), each smaller than the one before
+            lists, passes, fan_in = p["blocks"], 0, ops._IVF_SORT // k
+            while lists > 1:
+                lists = -(-lists // fan_in)
+                passes += 1
+            assert p["merge_passes"] == passes
+            if p["blocks"] > 1:
+                assert p["list_a_pairs"] >= qn * p["blocks"] * k
+            if passes > 1:
+                assert p["list_b_pairs"] >= qn * -(-p["blocks"] // fan_in) * k
+            assert ops.ivf_plan(qn, n, k, sms) == p
+
+
+def test_fullzip_gather_slots_are_per_stream():
+    """Launches on one stream share a work-ticket counter (they run in
+    turn); each other stream of a device gets its own, round-robin."""
+    ops._gather_slots.clear()
+    try:
+        a = ops.fullzip_gather_slot(0, 1000)
+        assert ops.fullzip_gather_slot(0, 1000) == a
+        others = {ops.fullzip_gather_slot(0, 2000 + i) for i in range(ops._GATHER_TICKET_SLOTS - 1)}
+        assert a not in others and len(others) == ops._GATHER_TICKET_SLOTS - 1
+        assert ops.fullzip_gather_slot(1, 1000) == a  # the 65th stream wraps around
+        assert all(0 <= s < ops._GATHER_TICKET_SLOTS for s in ops._gather_slots.values())
+    finally:
+        ops._gather_slots.clear()
+
+
+def test_ivf_plan_at_the_main_path_shapes():
+    """The search's shapes on a 132-SM card: the candidate steps run one
+    block per SM and merge in one pass; the probe step (256 centroids) is
+    one block that writes its rows itself."""
+    for qn, n in ((1, 133_003), (8, 694_907), (4, 1_048_576)):
+        p = ops.ivf_plan(qn, n, 10, 132)
+        assert p["blocks"] <= 132 and p["merge_passes"] == 1 and p["stages"] == 4
+        assert p["qg"] == qn and p["buf"] == 512
+    p = ops.ivf_plan(4, 256, 256, 132)
+    assert p["blocks"] == 1 and p["merge_passes"] == 0 and p["list_a_pairs"] == 0
+    assert ops.ivf_plan(8, 5000, 1024, 132)["stages"] == 2
+    with pytest.raises(ValueError):
+        ops.ivf_plan(1, 10, ops.IVF_K_MAX + 1, 132)
+
+
+@pytest.mark.parametrize("stride,zipped_ptr,out_ptr,route,word", [
+    (1536, 0, 512, "bulk", 16),        # the main path: 16-byte aligned rows
+    (16, 1024, 2048, "bulk", 16),
+    (40000, 0, 0, "bulk", 16),         # rows larger than a ring slot
+    (1536, 1, 0, "register", 1),       # a zipped view one byte past its base
+    (1536, 8, 0, "register", 8),
+    (1536, 0, 4, "register", 4),
+    (24, 0, 0, "register", 8),
+    (33, 0, 0, "register", 1),
+    (129, 512, 512, "register", 1),
+    (2, 0, 0, "register", 2),
+])
+def test_fullzip_plan_routes(stride, zipped_ptr, out_ptr, route, word):
+    """The bulk route needs the stride and both base addresses on 16 bytes;
+    otherwise the register route takes the widest word dividing all three."""
+    for n_take in (1, 7, 10, 11, 1000, 16_429, 262_144):
+        p = ops.fullzip_plan(n_take, stride, zipped_ptr, out_ptr, 132)
+        assert (p["route"], p["word"]) == (route, word)
+        if route == "bulk" and stride <= ops._GATHER_STAGE_BYTES:
+            per = min(32, ops._GATHER_STAGE_BYTES // stride)
+            assert p["units"] == -(-n_take // per)
+        elif route == "bulk":
+            assert p["units"] == n_take * -(-stride // ops._GATHER_STAGE_BYTES)
+        else:
+            assert p["units"] == n_take
+        assert 1 <= p["grid"] <= min(p["units"], 132 * ops._GATHER_BLOCKS_PER_SM[route])
 
 
 def test_ivf_topk_mismatch_rule():
