@@ -9,7 +9,9 @@ Phases, one JSON object per line on stdout:
 2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc`` for
    ``sm_90a`` (seconds, ptxas lines);
 3. the kernel sweep: each CUDA kernel against its plain PyTorch version on
-   the card, over the shape sweeps of the tests (tolerance 0, except
+   the card, over the shape sweeps of the tests, the edge cases of the
+   mini-block decode's slices and of the unpack's runs included
+   (``ref.miniblock_edge_cases``, ``ref.bitunpack_cases``; tolerance 0, except
    ``ivf_topk``: distances within 1e-6 of ``|d| + |q|^2 + max |c|^2``, the
    size of the terms the expanded form rounds at, and ids exact outside near
    ties, whose count it prints);
@@ -45,7 +47,9 @@ Phases, one JSON object per line on stdout:
    PyTorch call that computes the same function, where one does
    (``library_ms``, ``library_graph_ms``); and the least time the card
    could take (bytes over 3.35 TB/s or operations over 67 T/s, whichever
-   is larger);
+   is larger); and one more ``bitunpack`` row at 2**24 values of 11 bits
+   (``"step": "2**24"``, no launches on any path: it shows whether the
+   kernel reaches the bandwidth regime);
 8. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises, so the script exits non-zero and prints no result line.
@@ -92,6 +96,9 @@ SCAN_COLUMNS = ("id", "tags")
 PARTITIONS, INDEX_FRAGMENTS, K = 256, 2, 10
 SEARCHES = ((1, 32), (8, 32), (4, PARTITIONS))  # (queries, nprobe)
 BITUNPACK_N, BITUNPACK_BITS = 1 << 20, 11  # the JAX package's kernel_bench size
+# one more bitunpack row, off every path: whether the kernel reaches the
+# bandwidth regime, since 2**20 values are near the floor of one launch
+BITUNPACK_BIG_N = 1 << 24
 RTOL = 1e-6
 KERNEL_REPLACES = {
     "miniblock_decode": "src/repro/kernels/miniblock_decode.py:107",
@@ -334,6 +341,13 @@ def sweep_phase():
                                                     t[3][:, 2], tile, rep_bits, def_bits, vpe, -5)
                     tally("miniblock_decode", *_compare(got, want),
                           sum(g.numel() for g in got), t, kw)
+    for _, case, kw in ref.miniblock_edge_cases(rng):
+        t = [torch.from_numpy(a).to(dev) for a in case]
+        got = ops.miniblock_decode(*t, **kw)
+        want = ref.miniblock_decode_ref(t[0], t[1], t[2], t[3][:, 0], t[3][:, 1], t[3][:, 2],
+                                        kw["tile_entries"], kw["rep_bits"], kw["def_bits"],
+                                        kw["vpe"], kw["fill"])
+        tally("miniblock_decode", *_compare(got, want), sum(g.numel() for g in got), t, kw)
     for _, zipped, rows, offset in ref.gather_cases(rng):
         zipped = ref.at_offset(zipped, dev, offset)
         rows = torch.from_numpy(rows).to(dev)
@@ -348,6 +362,12 @@ def sweep_phase():
             m, e = _compare((got,), (ref.bitunpack_ref(words, n, bits),))
             tally("bitunpack", m + int((got.cpu().numpy() != v).sum()), e, n,
                   (words, n, bits))
+    for _, v, words, bits, offset in ref.bitunpack_cases(rng):
+        words = ref.at_offset(words, dev, offset)
+        got = ops.bitunpack(words, len(v), bits)
+        m, e = _compare((got,), (ref.bitunpack_ref(words, len(v), bits),))
+        tally("bitunpack", m + int((got.cpu().numpy() != v).sum()), e, len(v),
+              (words, len(v), bits))
     res["ivf_topk"][2] = 0.0
     ties = 0
     for q, c, ids, k, mask in ivf_cases(rng, dev):
@@ -787,19 +807,20 @@ def kernel_case(name, a, kw):
 PATH_ORDER = {"take": 0, "search": 1, "bitunpack": 2}
 
 
-def measure_phase(probe, smallest, launches, sweep):
+def measure_phase(probe, smallest, launches, sweep, rng):
     """Each kernel at the largest input each path (and search step) gave it:
     back-to-back ``ms``, device-only ``graph_ms``, L2-cold ``cold_ms``, the
     host ``launch_us`` at its smallest sweep input, its plain version's and
-    the PyTorch call's times, and its bound."""
+    the PyTorch call's times, and its bound.  Then one ``bitunpack`` row at
+    BITUNPACK_BIG_N values of words drawn from ``rng`` (step "2**24"), which
+    no path launches: its count is the probe's, 0."""
     out = []
     names = list(WRAPPERS)
     keys = sorted(probe.largest, key=lambda k: (names.index(k[0]), PATH_ORDER[k[1]],
                                                 k[2] or ""))
     small = {name: kernel_case(name, *smallest[name][1:])["launch"] for name in names}
-    for key in keys:
-        name, path, step = key
-        _, a, kw = probe.largest[key]
+
+    def measure(name, path, step, a, kw, launched):
         case = kernel_case(name, a, kw)
         mism, err, extra = case["check"]()
         lib = case["library"]
@@ -809,7 +830,7 @@ def measure_phase(probe, smallest, launches, sweep):
             "name": name, "path": path, "step": step, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": KERNEL_REPLACES[name],
-            "launches": probe.launched[key],
+            "launches": launched,
             "launches_by_path": {p: n[name] for p, n in launches.items()},
             "max_abs_err": err,
             "ms": time_ms(case["launch"]),
@@ -827,10 +848,18 @@ def measure_phase(probe, smallest, launches, sweep):
             "mismatches": mism + sweep[name]["mismatches"], **extra}
         del case
         check(mism == 0, f"{name} ({path}{' ' + step if step else ''}): disagrees with its "
-              "plain version at the largest path shape")
+              "plain version at the measured shape")
         out.append(rec)
+
+    for key in keys:
+        _, a, kw = probe.largest[key]
+        measure(*key, a, kw, probe.launched[key])
     for name in names:
         check(any(r["name"] == name for r in out), f"{name}: no main-path input to measure")
+    n, key = BITUNPACK_BIG_N, ("bitunpack", "bitunpack", "2**24")
+    w = rng.integers(0, 1 << 32, -(-n * BITUNPACK_BITS // 32), dtype=np.uint64)
+    words = ops.to_device(w.astype(np.uint32), ops.resolve_device())
+    measure(*key, (words, n, BITUNPACK_BITS), {}, probe.launched.get(key, 0))
     return out
 
 
@@ -863,7 +892,7 @@ def main() -> int:
         for name, n in counts.items():
             seen = sum(v for (k, p, _), v in probe.launched.items() if (k, p) == (name, path))
             check(seen == n, f"{name} on the {path} path: the probe saw {seen} of {n} launches")
-    kernels = measure_phase(probe, smallest, launches, sweep)
+    kernels = measure_phase(probe, smallest, launches, sweep, rng)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

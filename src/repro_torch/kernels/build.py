@@ -36,7 +36,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRY = {
     "miniblock_decode.cu": ("miniblock_decode_launch",
                             [_P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fullzip_gather.cu": ("fullzip_gather_launch",
                           [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P]),
     "ivf_topk.cu": ("ivf_topk_launch",

@@ -19,6 +19,7 @@ Counters, read by tests and ``chip_smoke.py``:
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict
 
@@ -51,6 +52,7 @@ __all__ = [
     "IVF_ID_SENTINEL",
     "fullzip_plan",
     "ivf_plan",
+    "miniblock_plan",
 ]
 
 MAX_ENTRIES = 4096  # the format's per-chunk value ceiling (sec 4.2.1)
@@ -68,6 +70,13 @@ _IVF_TILE, _IVF_STAGE_FLOATS = 256, 256 * 36 + 32 * 8
 _IVF_MIN_STAGES, _IVF_MAX_STAGES, _IVF_QMAX = 2, 4, 8
 _IVF_SMEM = 227 * 1024 - 1024
 _IVF_SORT = 4096
+# csrc/miniblock_decode.cu's constants, which miniblock_plan sizes a launch
+# with: entries per thread (two runs of 4) and the alignment of slices
+# (whole warps' runs); the values per slice the plan aims at (the fastest of
+# 512 to 2,048 entries at vpe = 1 on the card); the most blocks a launch takes
+_MB_PER_THREAD, _MB_SLICE_ALIGN = 8, 256
+_MB_SLICE_VALUES = 1024
+_GRID_MAX = (1 << 31) - 1
 # csrc/fullzip_gather.cu's ring: slot bytes, slots per block, rows per unit
 # at most, and the persistent blocks per SM of each route
 _GATHER_STAGE_BYTES, _GATHER_STAGES, _GATHER_MAX_ROWS = 16384, 4, 32
@@ -237,18 +246,41 @@ def miniblock_decode(
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def miniblock_plan(C: int, tile: int, vpe: int) -> Dict[str, int]:
+    """How ``csrc/miniblock_decode.cu`` runs ``C`` chunks of ``tile``
+    entries with ``vpe`` values each: ``slice`` entries per CTA (the
+    largest multiple of 256 with ``slice * vpe`` <= 1,024, at least 256),
+    ``slices`` per chunk (the last may reach past the tile), ``blocks`` = C
+    x slices CTAs of ``threads``, each thread two runs of 4 entries, and
+    ``smem`` bytes of dynamic shared memory: at vpe > 1 a slot table of 4
+    bytes an entry of the slice, at vpe = 1 none.  Memoized: every launch
+    asks for it, and the readers' shapes repeat."""
+    if not (C >= 1 and tile % 128 == 0 and 0 < tile <= MAX_ENTRIES
+            and vpe >= 1 and tile * vpe <= MAX_TILE_VALUES):
+        raise ValueError(f"no plan for C={C}, tile={tile}, vpe={vpe}")
+    s = max(_MB_SLICE_ALIGN, _MB_SLICE_VALUES // vpe // _MB_SLICE_ALIGN * _MB_SLICE_ALIGN)
+    slices = -(-tile // s)
+    if C * slices > _GRID_MAX:
+        raise ValueError(f"{C} chunks need more than {_GRID_MAX} blocks")
+    return {"slice": s, "slices": slices, "blocks": C * slices,
+            "threads": s // _MB_PER_THREAD, "smem": 4 * s if vpe > 1 else 0}
+
+
 def launch_miniblock_decode(rep_words, def_words, val_words, params,
                             out_rep, out_def, out_val, *, rep_bits: int,
                             def_bits: int, vpe: int, fill: int) -> None:
     """Launch the ``miniblock_decode`` kernel on tensors the wrapper has
-    checked (contiguous, on one CUDA device, at least one chunk)."""
+    checked (contiguous, on one CUDA device, at least one chunk, fresh
+    outputs), with :func:`miniblock_plan`'s plan."""
     dev = val_words.device
+    C, tile = out_rep.shape
     err = _lib().miniblock_decode_launch(
         _ptr(rep_words), _ptr(def_words), _ptr(val_words), _ptr(params),
         _ptr(out_rep), _ptr(out_def), _ptr(out_val),
-        val_words.shape[0], rep_words.shape[1], def_words.shape[1],
-        val_words.shape[1], rep_bits, def_bits, vpe, out_rep.shape[1],
-        int(fill), dev.index, _stream(dev))
+        C, rep_words.shape[1], def_words.shape[1], val_words.shape[1],
+        rep_bits, def_bits, vpe, tile, int(fill), miniblock_plan(C, tile, vpe)["slice"],
+        dev.index, _stream(dev))
     _raise_on(err, "miniblock_decode")
     launches["miniblock_decode"] += 1
 
@@ -354,7 +386,7 @@ def bitunpack(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:
 
 def launch_bitunpack(words, out, *, bits: int) -> None:
     """Launch the ``bitunpack`` kernel on tensors the wrapper has checked
-    (contiguous, on one CUDA device, at least one value)."""
+    (contiguous, on one CUDA device, at least one value, a fresh output)."""
     dev = words.device
     err = _lib().bitunpack_launch(
         _ptr(words), _ptr(out), out.shape[0], words.shape[0], bits, dev.index,

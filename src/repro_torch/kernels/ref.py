@@ -17,9 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["bitunpack_ref", "miniblock_decode_ref", "fullzip_gather_ref",
-           "ivf_topk_ref", "ivf_topk_mismatches", "ivf_topk_scale", "miniblock_case",
-           "gather_cases", "ivf_hazard_cases", "at_offset", "IVF_ID_SENTINEL"]
+__all__ = ["bitunpack_ref", "miniblock_decode_ref", "miniblock_slice_slots",
+           "fullzip_gather_ref", "ivf_topk_ref", "ivf_topk_mismatches", "ivf_topk_scale",
+           "miniblock_case", "miniblock_edge_cases", "bitunpack_cases", "gather_cases",
+           "ivf_hazard_cases", "at_offset", "IVF_ID_SENTINEL"]
 
 _U32 = 0xFFFFFFFF
 
@@ -120,6 +121,44 @@ def miniblock_decode_ref(
     out = torch.where(valid_k, _wrap_i32(_wrap_i32(vals).to(torch.int64) + ref),
                       torch.full_like(vals, fill, dtype=torch.int32))
     return rep.to(torch.int32), d.to(torch.int32), out
+
+
+def miniblock_slice_slots(def_words: torch.Tensor, n_entries: torch.Tensor, def_bits: int,
+                          tile: int, slice_entries: int) -> torch.Tensor:
+    """The first value slot of each slice of ``slice_entries`` entries, as
+    ``csrc/miniblock_decode.cu`` counts it: the valid entries before the
+    slice.  Slices start at multiples of 32 entries, so the prefix is whole
+    def words; for power-of-two widths each word's zero fields are counted at
+    once (each field's bits folded onto its lowest bit, masked, popcounted),
+    other widths field by field.  ``(C, slices)`` int64; a slice with no
+    entry below its chunk's ``n_entries`` reads 0 (the kernel needs none)."""
+    C = def_words.shape[0]
+    dev = def_words.device
+    starts = torch.arange(0, tile, slice_entries, device=dev, dtype=torch.int64)
+    n = n_entries.to(device=dev, dtype=torch.int64).view(C, 1)
+    if not def_bits:
+        before = starts.expand(C, -1)
+    elif def_bits & (def_bits - 1) == 0:
+        words = _u32(def_words)
+        idx = torch.clamp(torch.arange(tile * def_bits // 32, device=dev),
+                          max=words.shape[1] - 1).expand(C, -1)
+        x = torch.gather(words, 1, idx)
+        s = 1
+        while s < def_bits:
+            x = x | (x >> s)
+            s *= 2
+        x = x & sum(1 << b for b in range(0, 32, def_bits))
+        nonzero = sum((x >> b) & 1 for b in range(32))
+        zeros = torch.cumsum(32 // def_bits - nonzero, dim=1)
+        zeros = torch.cat([torch.zeros((C, 1), dtype=torch.int64, device=dev), zeros], 1)
+        before = zeros[:, starts * def_bits // 32]
+    else:
+        j = torch.arange(tile, device=dev, dtype=torch.int64).expand(C, -1)
+        d = _extract(_u32(def_words), j * def_bits, def_bits, (1 << def_bits) - 1)
+        zeros = torch.cumsum((d == 0).to(torch.int64), dim=1)
+        zeros = torch.cat([torch.zeros((C, 1), dtype=torch.int64, device=dev), zeros], 1)
+        before = zeros[:, starts]
+    return torch.where(n > starts, before, torch.zeros_like(before))
 
 
 def fullzip_gather_ref(zipped: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -229,26 +268,34 @@ def ivf_topk_scale(queries, cands) -> np.ndarray:
 
 def miniblock_case(rng: np.random.Generator, rep_bits: int, def_bits: int, vpe: int,
                    n_chunks: int, tile: int = 1024, max_bits: int = 24,
-                   ref_range=(-100, 100)):
+                   ref_range=(-100, 100), *, n_range=None, nulls=None, min_bits: int = 0,
+                   extra_words: int = 0):
     """Random ``miniblock_decode`` inputs as numpy arrays: ``(rep_words,
-    def_words, val_words, params)``.  Each chunk has 1..``tile`` entries,
-    random levels at the given widths, ``vpe`` values per valid entry at a
-    width of 0..``max_bits`` bits, and a frame of reference from
+    def_words, val_words, params)``.  Each chunk has 1..``tile`` entries
+    (or a count drawn from ``n_range``, both ends included), random levels
+    at the given widths (``nulls="none"``: every def level 0; ``"all"``:
+    none 0), ``vpe`` values per valid entry at a width of
+    ``min_bits``..``max_bits`` bits, and a frame of reference from
     ``ref_range``; rows are ragged and zero-padded, as the reader stacks
-    them."""
+    them, with ``extra_words`` more words of padding."""
     from ..core.compression import bitpack  # both import this module
     from .ops import pack_words
 
     C = n_chunks
-    rep_words = np.zeros((C, (tile * rep_bits + 31) // 32 + 1 if rep_bits else 1), np.uint32)
-    def_words = np.zeros((C, (tile * def_bits + 31) // 32 + 1 if def_bits else 1), np.uint32)
-    val_words = np.zeros((C, (tile * vpe * max_bits + 31) // 32 + 1), np.uint32)
+    rep_words = np.zeros((C, (tile * rep_bits + 31) // 32 + 1 + extra_words
+                          if rep_bits else 1), np.uint32)
+    def_words = np.zeros((C, (tile * def_bits + 31) // 32 + 1 + extra_words
+                          if def_bits else 1), np.uint32)
+    val_words = np.zeros((C, (tile * vpe * max_bits + 31) // 32 + 1 + extra_words), np.uint32)
     params = np.zeros((C, 3), np.int32)
+    lo, hi = n_range or (1, tile)
     for c in range(C):
-        n = int(rng.integers(1, tile + 1))
-        bits = int(rng.integers(0, max_bits + 1))
-        defs = (rng.integers(0, 2 ** def_bits, n, dtype=np.uint64)
-                if def_bits else np.zeros(n, np.uint64))
+        n = int(rng.integers(lo, hi + 1))
+        bits = int(rng.integers(min_bits, max_bits + 1))
+        if not def_bits or nulls == "none":
+            defs = np.zeros(n, np.uint64)
+        else:
+            defs = rng.integers(1 if nulls == "all" else 0, 2 ** def_bits, n, dtype=np.uint64)
         if rep_bits:
             w = pack_words(bitpack(rng.integers(0, 2 ** rep_bits, n, dtype=np.uint64), rep_bits))
             rep_words[c, : len(w)] = w
@@ -260,6 +307,61 @@ def miniblock_case(rng: np.random.Generator, rep_bits: int, def_bits: int, vpe: 
         val_words[c, : len(w)] = w
         params[c] = [n, bits, int(rng.integers(*ref_range))]
     return rep_words, def_words, val_words, params
+
+
+def miniblock_edge_cases(rng: np.random.Generator):
+    """The ``miniblock_decode`` sweep of the shapes its slices, runs and
+    slot tables meet, as ``(label, (rep_words, def_words,
+    val_words, params), kwargs)``: def widths that straddle words and are
+    counted field by field (3, 5, 7) beside power-of-two ones, chunks with
+    fewer than 32 entries and counts off any run or slice, all-null and
+    null-free chunks, 1, 3, 4, 32 and 80 values per entry (4,096 x 32 is
+    ``MAX_TILE_VALUES``; 80 at 31 bits: 2,480 value bits an entry),
+    value widths 0 and 31 with a frame of reference that wraps, and word
+    rows of every width modulo 4."""
+    wrap = (1 << 30, (1 << 31) - 1)
+    cases = []
+    for db in (1, 2, 3, 5, 7):
+        cases.append((f"def_bits={db}", (1, db, 1, 5, 3072), {}))
+    for n_range in ((1, 31), (1025, 1027), (2047, 2049)):
+        cases.append((f"n in {n_range}", (1, 3, 1, 4, 3072), {"n_range": n_range}))
+    for nulls in ("all", "none"):
+        for db in (2, 3):
+            cases.append((f"nulls={nulls} def_bits={db}", (1, db, 1, 4, 2688),
+                          {"nulls": nulls}))
+    for vpe, tile in ((3, 1024), (4, 2048), (32, 4096)):
+        cases.append((f"vpe={vpe} tile={tile}", (0, 2, vpe, 3, tile), {"max_bits": 31}))
+    cases.append(("vpe=80 tile=128, 31-bit values", (0, 2, 80, 3, 128),
+                  {"nulls": "none", "n_range": (120, 128), "min_bits": 31, "max_bits": 31}))
+    cases.append(("value width 0", (1, 2, 1, 3, 1024), {"max_bits": 0}))
+    cases.append(("value width 31, FoR wraps", (1, 2, 1, 3, 1024),
+                  {"min_bits": 31, "max_bits": 31, "ref_range": wrap}))
+    for extra in (1, 2, 3):
+        cases.append((f"rows padded by {extra} words", (1, 5, 1, 3, 1024),
+                      {"extra_words": extra}))
+    for label, (rb, db, vpe, C, tile), kw in cases:
+        case = miniblock_case(rng, rb, db, vpe, C, tile, kw.pop("max_bits", 24),
+                              kw.pop("ref_range", (-100, 100)), **kw)
+        yield label, case, dict(rep_bits=rb, def_bits=db, vpe=vpe, tile_entries=tile,
+                                fill=-9)
+
+
+def bitunpack_cases(rng: np.random.Generator):
+    """The ``bitunpack`` sweep of its units' edges, as ``(label, values,
+    words, bits, offset)`` numpy inputs: every width 1..32 at n = 1, 3, 31,
+    33 and 4,097 values (tails off 4 and off a 128-value group), words given
+    as exactly the ``ceil(n * bits / 32)`` the values span, and at n = 4,097
+    also a ``words`` view 4 bytes past an aligned base."""
+    from ..core.compression import bitpack
+    from .ops import pack_words
+
+    for bits in range(1, 33):
+        for n in (1, 3, 31, 33, 4097):
+            v = rng.integers(0, 1 << bits, n, dtype=np.uint64)
+            words = pack_words(bitpack(v, bits), pad_words=0)
+            assert len(words) == -(-n * bits // 32)
+            for offset in ((0, 4) if n == 4097 else (0,)):
+                yield f"bits={bits} n={n} +{offset}", v, words, bits, offset
 
 
 def at_offset(a: np.ndarray, device, offset: int = 0) -> torch.Tensor:

@@ -26,14 +26,16 @@ def test_chip_smoke_rehearses_on_the_cpu():
     kernels = json.loads(lines[-2])["kernels"]
     for k in kernels:
         assert KEYS <= set(k), KEYS - set(k)
-        assert k["launches"] > 0 and k["mismatches"] == 0
+        # the 2**24 unpack row is off every path; every other row's path launched it
+        assert (k["launches"] > 0) != (k["step"] == "2**24") and k["mismatches"] == 0
         assert k["source"] == f"src/repro_torch/kernels/csrc/{k['name']}.cu"
         assert (k["library_ms"] is None) == (k["name"] != "fullzip_gather")
     entries = {(k["name"], k["path"], k["step"]) for k in kernels}
     assert len(entries) == len(kernels)
     assert {("miniblock_decode", "take", None), ("miniblock_decode", "search", None),
             ("fullzip_gather", "take", None), ("fullzip_gather", "search", None),
-            ("ivf_topk", "search", "probe"), ("bitunpack", "bitunpack", None)} <= entries
+            ("ivf_topk", "search", "probe"), ("bitunpack", "bitunpack", None),
+            ("bitunpack", "bitunpack", "2**24")} <= entries
     assert {s for n, _, s in entries if n == "ivf_topk"} == {
         "probe", "candidates q=1", "candidates q=4", "candidates q=8"}
     phases = [json.loads(ln).get("phase") for ln in lines if ln.startswith("{")]

@@ -47,6 +47,41 @@ def test_cuda_miniblock_decode_matches_plain(cuda_device, rep_bits, def_bits, vp
         assert torch.equal(w, g)
 
 
+_MB_EDGES = [label for label, *_ in ref.miniblock_edge_cases(np.random.default_rng(0))]
+
+
+@pytest.mark.parametrize("index", range(len(_MB_EDGES)), ids=_MB_EDGES)
+def test_cuda_miniblock_decode_edges(cuda_device, index):
+    """The shapes the slices, runs, prefix counts and slot tables meet
+    (ref.miniblock_edge_cases), through the launcher and the wrapper,
+    tolerance 0."""
+    label, case, kw = next(x for i, x in enumerate(
+        ref.miniblock_edge_cases(np.random.default_rng(0))) if i == index)
+    t = [torch.from_numpy(a).to(cuda_device) for a in case]
+    tile, vpe, fill = kw["tile_entries"], kw["vpe"], kw["fill"]
+    want = ref.miniblock_decode_ref(t[0], t[1], t[2], t[3][:, 0], t[3][:, 1], t[3][:, 2],
+                                    tile, kw["rep_bits"], kw["def_bits"], vpe, fill)
+    out = [torch.empty_like(w) for w in want]
+    n0 = ops.launches["miniblock_decode"]
+    ops.launch_miniblock_decode(*t, *out, rep_bits=kw["rep_bits"], def_bits=kw["def_bits"],
+                                vpe=vpe, fill=fill)
+    torch.cuda.synchronize()
+    assert ops.launches["miniblock_decode"] == n0 + 1
+    for w, g in zip(want, out):
+        assert torch.equal(w, g), label
+    for w, g in zip(want, ops.miniblock_decode(*t, **kw)):
+        assert torch.equal(w, g), label
+
+
+def test_cuda_miniblock_decode_refuses_misaligned_outputs(cuda_device):
+    case = ref.miniblock_case(np.random.default_rng(1), 0, 1, 1, 2, 128)
+    t = [torch.from_numpy(a).to(cuda_device) for a in case]
+    flat = torch.empty(2 * 128 * 3 + 1, dtype=torch.int32, device=cuda_device)
+    rep, dfs, vals = flat[1:].view(3, 2, 128)  # 4 bytes past a 16-byte boundary
+    with pytest.raises(RuntimeError, match="miniblock_decode kernel launch failed"):
+        ops.launch_miniblock_decode(*t, rep, dfs, vals, rep_bits=0, def_bits=1, vpe=1, fill=0)
+
+
 @pytest.mark.parametrize("stride", [1, 8, 16, 33, 129, 1536, 16400, 40000])
 @pytest.mark.parametrize("n_take", [1, 7, 257, 1001])
 def test_cuda_fullzip_gather_matches_plain(cuda_device, stride, n_take):
@@ -119,6 +154,29 @@ def test_cuda_bitunpack_matches_plain(cuda_device, bits, n):
     assert ops.launches["bitunpack"] == n0 + 1
     assert torch.equal(got, ref.bitunpack_ref(words, n, bits))
     np.testing.assert_array_equal(got.cpu().numpy(), v)
+
+
+@pytest.mark.parametrize("bits", range(1, 33))
+def test_cuda_bitunpack_edges(cuda_device, bits):
+    """Every width at n = 1, 3, 31, 33, 4,097 with exactly ceil(n * bits /
+    32) words, and a words view 4 bytes past an aligned base
+    (ref.bitunpack_cases), tolerance 0."""
+    for label, v, words, b, offset in ref.bitunpack_cases(np.random.default_rng(bits)):
+        if b != bits:
+            continue
+        w = ref.at_offset(words, cuda_device, offset)
+        assert w.data_ptr() % 16 == offset
+        n = len(v)
+        got = ops.bitunpack(w, n, bits)
+        assert torch.equal(got, ref.bitunpack_ref(w, n, bits)), label
+        np.testing.assert_array_equal(got.cpu().numpy(), v)
+
+
+def test_cuda_bitunpack_refuses_a_misaligned_output(cuda_device):
+    words = torch.zeros(8, dtype=torch.uint32, device=cuda_device)
+    out = torch.empty(9, dtype=torch.uint32, device=cuda_device)[1:]
+    with pytest.raises(RuntimeError, match="bitunpack kernel launch failed"):
+        ops.launch_bitunpack(words, out, bits=7)
 
 
 @pytest.mark.parametrize("dim", [3, 64, 128, 200, 384])

@@ -487,3 +487,96 @@ def test_ivf_topk_mismatch_rule():
     assert ref.ivf_topk_mismatches(off, want_w, want_d, want_w, scale=[100.0])[0] == 0
     nan = np.full_like(want_d, np.nan)
     assert ref.ivf_topk_mismatches(nan, want_w, nan, want_w) == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# miniblock_decode's slices and bitunpack's runs (the plans the kernels
+# launch from, and the edge cases of their designs)
+# ---------------------------------------------------------------------------
+
+
+_MB_EDGES = [label for label, *_ in ref.miniblock_edge_cases(np.random.default_rng(0))]
+
+
+@pytest.mark.parametrize("index", range(len(_MB_EDGES)), ids=_MB_EDGES)
+def test_miniblock_edge_cases_match_pallas(index):
+    """ref.miniblock_edge_cases (the card's sweep of slices, runs and slot
+    tables) through the Pallas kernel and the port's CPU route."""
+    label, case, kw = next(x for i, x in enumerate(
+        ref.miniblock_edge_cases(np.random.default_rng(0))) if i == index)
+    want = jops.miniblock_decode(*(jnp.asarray(a) for a in case), use_pallas=True, **kw)
+    got = ops.miniblock_decode(*_torch_args(case), **kw)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy(), err_msg=label)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 7, 11, 16, 25, 31, 32])
+def test_bitunpack_edge_cases_match_pallas(bits):
+    """ref.bitunpack_cases at one width: tails off 4 and off 128, words
+    given as exactly ceil(n * bits / 32)."""
+    for label, v, words, b, offset in ref.bitunpack_cases(np.random.default_rng(bits)):
+        if b != bits or offset:
+            continue
+        want = np.asarray(jops.bitunpack(jnp.asarray(words), len(v), bits, use_pallas=True))
+        got = ops.bitunpack(torch.from_numpy(words), len(v), bits)
+        np.testing.assert_array_equal(want, got.numpy(), err_msg=label)
+        np.testing.assert_array_equal(v, got.numpy(), err_msg=label)
+
+
+@pytest.mark.parametrize("def_bits", [0, 1, 2, 3, 4, 5, 7, 8, 16])
+@pytest.mark.parametrize("slice_entries", [256, 1024])
+def test_miniblock_slice_slots_match_cumsum(def_bits, slice_entries):
+    """The kernel's count of valid entries before each slice (whole def
+    words with popcounts for power-of-two widths, field by field otherwise:
+    ref.miniblock_slice_slots) equals the plain version's cumsum(valid)."""
+    tile = 4096
+    rng = np.random.default_rng(def_bits * 10 + slice_entries)
+    for nulls in (None, "none", "all"):
+        rw, dw, vw, p = _torch_args(ref.miniblock_case(
+            rng, 0, def_bits, 1, 6, tile, nulls=nulls, n_range=(1, tile)))
+        _, d, _ = ref.miniblock_decode_ref(rw, dw, vw, p[:, 0], p[:, 1], p[:, 2], tile, 0,
+                                           def_bits, 1, 0)
+        j = torch.arange(tile)
+        valid = (d == 0) & (j < p[:, :1])
+        before = torch.cumsum(valid.to(torch.int64), 1) - valid.to(torch.int64)
+        starts = torch.arange(0, tile, slice_entries)
+        want = torch.where(p[:, :1] > starts, before[:, starts], torch.zeros(()).long())
+        got = ref.miniblock_slice_slots(dw, p[:, 0], def_bits, tile, slice_entries)
+        assert torch.equal(got, want)
+
+
+def test_miniblock_kernel_constants_match_the_plan():
+    """miniblock_plan sizes a launch with csrc/miniblock_decode.cu's runs,
+    slice alignment and limit, and slot table."""
+    c = _cu_constants("miniblock_decode.cu")
+    assert int(c["kRun"]) * int(c["kRuns"]) == ops._MB_PER_THREAD
+    assert c["kSliceAlign"] == "32 * kRun * kRuns" and ops._MB_SLICE_ALIGN == 32 * 8
+    assert int(c["kMaxSlice"]) == ops.miniblock_plan(1, ops.MAX_ENTRIES, 1)["slice"]
+    assert "sizeof(int32_t) * static_cast<size_t>(slice)" in c["_text"]
+
+
+@pytest.mark.parametrize("C", [1, 457])
+def test_miniblock_plan_covers_every_shape(C):
+    """For every tile the wrapper takes (multiples of 128 up to 4,096) and
+    every vpe with tile * vpe <= MAX_TILE_VALUES: the slices cover every
+    entry once and start at multiples of 32 entries; CTAs are whole warps of
+    at most 128 threads; the shared memory (a slot table at vpe > 1) stays
+    below the 48 KB a launch takes unasked (and the SM's 227 KB)."""
+    for tile in range(128, ops.MAX_ENTRIES + 1, 128):
+        for vpe in range(1, ops.MAX_TILE_VALUES // tile + 1):
+            p = ops.miniblock_plan(C, tile, vpe)
+            sl = p["slice"]
+            assert sl % 256 == 0 and sl * vpe <= 1024 or sl == 256
+            assert p["slices"] * sl >= tile > (p["slices"] - 1) * sl
+            assert p["blocks"] == C * p["slices"] <= (1 << 31) - 1
+            assert p["threads"] * 8 == sl and p["threads"] % 32 == 0
+            assert 32 <= p["threads"] <= 128
+            assert p["smem"] <= 48 * 1024 <= 227 * 1024
+            if vpe == 1:
+                assert sl == 1024 and p["smem"] == 0
+            else:
+                assert p["smem"] == 4 * sl
+    with pytest.raises(ValueError):
+        ops.miniblock_plan(C, 4096, 64)  # past MAX_TILE_VALUES
+    with pytest.raises(ValueError):
+        ops.miniblock_plan(C, 1000, 1)

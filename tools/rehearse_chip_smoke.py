@@ -47,6 +47,7 @@ SHRINK = (
     ("PARTITIONS, INDEX_FRAGMENTS, K = 256, 2, 10", "PARTITIONS, INDEX_FRAGMENTS, K = 16, 2, 10"),
     ("SEARCHES = ((1, 32), (8, 32), (4, PARTITIONS))", "SEARCHES = ((1, 2), (8, 2), (4, PARTITIONS))"),
     ("BITUNPACK_N, BITUNPACK_BITS = 1 << 20, 11", "BITUNPACK_N, BITUNPACK_BITS = 1 << 12, 11"),
+    ("BITUNPACK_BIG_N = 1 << 24", "BITUNPACK_BIG_N = 1 << 14"),
     ("flush_bytes: int = 128 << 20", "flush_bytes: int = 1 << 10"),
     ("calls: int = 1000", "calls: int = 3"),
     ("ref.ivf_hazard_cases(rng)", "ref.ivf_hazard_cases(rng, n=600, dim=8)"),
