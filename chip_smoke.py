@@ -32,10 +32,29 @@ Phases, one JSON object per line on stdout:
    identical, ``ivf_topk`` must launch on both steps of every search with no
    ``decode.fallback.ivf.*``, and the exhaustive batch must reach recall@10
    = 1.0 against a float64 brute force;
-6. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
+6. the tiered path over the same four files (``tiered``): the reference's
+   deployment shape, an NVMe block cache (64 MB, 16,384 blocks of 4 KiB,
+   clock, always-admit) over S3.  ``DatasetReader(store="tiered")`` takes
+   1,024 and 16,384 random rows on every column cold (after
+   ``drop_caches``) and warm, and scans ``id`` cold in 64 KiB windows with
+   readahead;
+   ``store="hot"`` (RAM over NVMe over S3) takes 1,024 rows cold and warm;
+   ``store="tiered-auto"`` scans, then takes, and prints its admission
+   flips; ``Retriever(store="tiered")`` fetches 1,024 ids cold and warm;
+   ``DatasetWriter`` at the reference's defaults (tiered, write-back)
+   ingests the files, takes the committed rows, then crashes with an
+   uncommitted append in flight.  Each step runs on the device route and on
+   a numpy-route twin in lockstep: results equal the source, and the twins'
+   ``tier_stats()``, ``io_stats()``, ``write_stats()`` and
+   ``modelled_time()`` are identical after every step; logical IO and the
+   write trace equal the flat store's.  Each line gives both routes' wall
+   ms, the kernels' and copies' ms, ``store_ms`` (host time in the store's
+   batch-close accounting: coalescing, per-block classification,
+   readahead, flush policy) and the modelled IO ms;
+7. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
    ``kernel_bench`` size), unpacked on the card and checked against the
    packed values;
-7. each kernel at the largest input each path gave it (``take``, ``search``
+8. each kernel at the largest input each path gave it (``take``, ``search``
    and ``bitunpack``; ``ivf_topk`` per search step: the centroid ``probe``
    and the ``candidates`` of each batch size), one ``kernels`` entry each:
    ``ms``, the mean of 20 back-to-back launches by CUDA events, host launch
@@ -50,7 +69,14 @@ Phases, one JSON object per line on stdout:
    is larger); and one more ``bitunpack`` row at 2**24 values of 11 bits
    (``"step": "2**24"``, no launches on any path: it shows whether the
    kernel reaches the bandwidth regime);
-8. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+9. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+
+Between the sweep and the dataset, ``gather_streams`` holds the gather's
+per-launch work counter to its contract: the take shape's gather (16,429
+rows of 1,536 bytes) launched on 65 CUDA streams at once, three rounds, and
+a CUDA graph captured on one stream and replayed on another while a direct
+launch runs on the capture stream, 20 times.  Every output starts filled
+with a sentinel and must equal the plain version at tolerance 0.
 
 Any failure raises, so the script exits non-zero and prints no result line.
 Without a CUDA device it exits 2 at once; without the repository's ``src``
@@ -82,6 +108,7 @@ from repro_torch.dataset import (DatasetReader, DatasetWriter, IvfIndex,  # noqa
 from repro_torch.dataset import ivf as ivf_module  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.serve import Retriever  # noqa: E402
+from repro_torch.store import IOScheduler  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (NVIDIA data sheet)
@@ -99,6 +126,18 @@ BITUNPACK_N, BITUNPACK_BITS = 1 << 20, 11  # the JAX package's kernel_bench size
 # one more bitunpack row, off every path: whether the kernel reaches the
 # bandwidth regime, since 2**20 values are near the floor of one launch
 BITUNPACK_BIG_N = 1 << 24
+# gather_streams: the take path's gather shape, on more streams than the
+# bulk route had work counters before they became per launch (64)
+GATHER_ROWS, GATHER_STRIDE = 16429, 1536
+GATHER_STREAMS, GATHER_ROUNDS, GRAPH_REPLAYS = 65, 3, 20
+# the tiered path: take sizes, and the size of the uncommitted append that
+# the writer's crash tears
+TIERED_TAKES = (1024, 16384)
+CRASH_ROWS = 4096
+# the tiered scans read in windows of this size, so that readahead sees a
+# sequential stream inside each fragment (the default window, 8 MB, reads a
+# fragment's id column at once)
+TIERED_SCAN_CHUNK = 64 << 10
 RTOL = 1e-6
 KERNEL_REPLACES = {
     "miniblock_decode": "src/repro/kernels/miniblock_decode.py:107",
@@ -273,6 +312,38 @@ class Probe:
             setattr(ops, name, fn)
 
 
+class StoreClock:
+    """Host time in the store's batch-close accounting: the scheduler's
+    read and write batch closes (coalescing, per-block classification
+    against the cache tiers, readahead, the flush policy's ticks) and its
+    commit barrier, read off by :meth:`take` (ms since the last take)."""
+
+    NAMES = ("_finish", "_finish_write", "flush_barrier")
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.real = {n: getattr(IOScheduler, n) for n in self.NAMES}
+        for name, fn in self.real.items():
+            setattr(IOScheduler, name, self._timed(fn))
+
+    def _timed(self, fn):
+        def timed(*args, **kw):
+            s = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds += time.perf_counter() - s
+        return timed
+
+    def take(self) -> float:
+        ms, self.seconds = self.seconds * 1e3, 0.0
+        return ms
+
+    def restore(self):
+        for name, fn in self.real.items():
+            setattr(IOScheduler, name, fn)
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -383,6 +454,79 @@ def sweep_phase():
     for k, v in out.items():
         check(v["mismatches"] == 0, f"{k}: {v['mismatches']} mismatches against its plain version")
     return out, smallest
+
+
+def gather_streams_phase(rng):
+    """The gather's bulk route draws work from a counter that must belong to
+    its launch alone.  Launch it at the take shape on GATHER_STREAMS streams
+    at once (GATHER_ROUNDS rounds, fresh row ids each), then replay a CUDA
+    graph captured on stream A on stream B while a direct launch runs on A
+    (GRAPH_REPLAYS times).  Outputs start filled with a sentinel, so a unit
+    of rows that no block gathered shows; every output must equal the plain
+    version exactly.  Emits the rows that differ, then fails on any."""
+    dev = torch.device("cuda")
+    zipped = torch.from_numpy(
+        rng.integers(0, 256, (GATHER_ROWS, GATHER_STRIDE), dtype=np.uint8)).to(dev)
+    plan = ops.fullzip_plan(GATHER_ROWS, GATHER_STRIDE, zipped.data_ptr(), 0,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)
+    check(plan["route"] == "bulk", f"gather_streams: the take shape took the {plan['route']} "
+          "route, which has no work counter")
+
+    def rows_of():
+        return torch.from_numpy(
+            rng.integers(0, GATHER_ROWS, GATHER_ROWS).astype(np.int32)).to(dev)
+
+    def sentinel():
+        return torch.full((GATHER_ROWS, GATHER_STRIDE), 0xA5, dtype=torch.uint8, device=dev)
+
+    def wrong_rows(out, rows):
+        return int((out != ref.fullzip_gather_ref(zipped, rows)).any(dim=1).sum())
+
+    wrong = {"streams": 0, "graph": 0, "direct": 0}
+    main = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream() for _ in range(GATHER_STREAMS)]
+    for _ in range(GATHER_ROUNDS):
+        rows = [rows_of() for _ in streams]
+        outs = [sentinel() for _ in streams]
+        for st in streams:
+            st.wait_stream(main)
+        for st, r, o in zip(streams, rows, outs):
+            with torch.cuda.stream(st):
+                ops.launch_fullzip_gather(zipped, r, o)
+        for st in streams:
+            main.wait_stream(st)
+        torch.cuda.synchronize()
+        wrong["streams"] += sum(wrong_rows(o, r) for r, o in zip(rows, outs))
+    del outs
+
+    a, b = torch.cuda.Stream(), torch.cuda.Stream()
+    rows_g, rows_d = rows_of(), rows_of()
+    out_g, out_d = sentinel(), sentinel()
+    for st in (a, b):
+        st.wait_stream(main)
+    with torch.cuda.stream(a):  # a first launch outside the capture
+        ops.launch_fullzip_gather(zipped, rows_g, out_g)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=a):
+        out_g.fill_(0xA5)
+        ops.launch_fullzip_gather(zipped, rows_g, out_g)
+    torch.cuda.synchronize()
+    for _ in range(GRAPH_REPLAYS):
+        with torch.cuda.stream(b):
+            graph.replay()
+        with torch.cuda.stream(a):
+            out_d.fill_(0xA5)
+            ops.launch_fullzip_gather(zipped, rows_d, out_d)
+        torch.cuda.synchronize()
+        wrong["graph"] += wrong_rows(out_g, rows_g)
+        wrong["direct"] += wrong_rows(out_d, rows_d)
+    del graph
+    emit({"phase": "gather_streams", "rows": GATHER_ROWS, "row_bytes": GATHER_STRIDE,
+          "route": plan["route"], "streams": GATHER_STREAMS, "rounds": GATHER_ROUNDS,
+          "graph_replays": GRAPH_REPLAYS, "tolerance": 0, "rows_wrong": wrong})
+    for k, v in wrong.items():
+        check(v == 0, f"gather_streams: {v} rows wrong ({k})")
 
 
 def ivf_cases(rng, dev):
@@ -716,6 +860,228 @@ def search_path_phase(table, files, rng, probe):
     return launches
 
 
+def twin_state(r):
+    """What the device route and its numpy twin must agree on after every
+    step: every tier's counters, the logical read (and write) trace and the
+    modelled IO time."""
+    state = ([dataclasses.astuple(t) for t in r.tier_stats()],
+             dataclasses.astuple(r.io_stats()), r.modelled_time())
+    if hasattr(r, "write_stats"):
+        state += (dataclasses.astuple(r.write_stats()),)
+    return state
+
+
+def tiers_of(r):
+    return [{"tier": t.name, "hits": t.hits, "misses": t.misses, "hit_rate": t.hit_rate,
+             "evictions": t.evictions, "n_iops": t.n_iops, "bytes_read": t.bytes_read,
+             "prefetch_iops": t.prefetch_iops, "write_iops": t.write_iops,
+             "flush_iops": t.flush_iops, "dirty_bytes": t.dirty_bytes,
+             "lost_bytes": t.lost_bytes} for t in r.tier_stats()]
+
+
+class Twins:
+    """Runs each step on the device route, then on its numpy-route twin,
+    and checks after each that their state is identical.  Sums each
+    route's wall ms, the kernels' and copies' ms (device route) and the
+    store's batch-close ms (both routes) into the open record."""
+
+    def __init__(self, probe, clock):
+        self.probe, self.clock = probe, clock
+        self.rec = None
+
+    def open(self, **fields):
+        self.rec = {"phase": "tiered", **fields, "device_wall_ms": 0.0, "numpy_wall_ms": 0.0,
+                    "kernel_ms": 0.0, "copy_ms": 0.0,
+                    "store_ms": {"device": 0.0, "numpy": 0.0}}
+        return self.rec
+
+    def call(self, tag, dev, host, fn, state=twin_state):
+        rec = self.rec
+        self.probe.collect()
+        self.clock.take()
+        s = time.perf_counter()
+        got = fn(dev)
+        torch.cuda.synchronize()
+        rec["device_wall_ms"] += (time.perf_counter() - s) * 1e3
+        rec["store_ms"]["device"] += self.clock.take()
+        times = self.probe.collect()
+        rec["kernel_ms"] += sum(self.probe.kernel_ms(times).values())
+        rec["copy_ms"] += times.get("to_device", 0.0) + times.get("to_host", 0.0)
+        s = time.perf_counter()
+        want = fn(host)
+        rec["numpy_wall_ms"] += (time.perf_counter() - s) * 1e3
+        rec["store_ms"]["numpy"] += self.clock.take()
+        self.probe.collect()
+        check(state(dev) == state(host),
+              f"{tag}: tier stats, IO or modelled time differ between the routes")
+        return got, want
+
+    def close(self, dev):
+        rec, self.rec = self.rec, None
+        rec["modelled_io_ms"] = dev.modelled_time() * 1e3
+        rec["tiers"] = tiers_of(dev)
+        emit(rec)
+        return rec
+
+
+def take_all(tw, tag, dev, host, rows, table, flat=None):
+    """Take ``rows`` of every column on both twins: equal to each other and
+    to the source; with ``flat``, the logical IO equals the flat store's."""
+    for col in COLUMNS:
+        got, want = tw.call(f"{tag} {col}", dev, host, lambda r: r.take(col, rows))
+        check(same_buffers(want, got), f"{tag} {col}: device != numpy route")
+        check(same_values(table[col].take(rows), got), f"{tag} {col}: != source")
+        if flat is not None:
+            flat.take(col, rows)
+            check(dataclasses.astuple(flat.io_stats()) == dataclasses.astuple(dev.io_stats()),
+                  f"{tag} {col}: logical IO differs from the flat store's")
+
+
+def cold_warm(tw, store, dev, host, rows, table, flat=None):
+    """A cold pass (caches dropped) and a warm repeat of the same takes."""
+    out = {}
+    for r in (dev, host):
+        r.drop_caches()
+    for step in ("cold", "warm"):
+        for r in (dev, host, flat):
+            if r is not None:
+                r.reset_io()
+        tw.open(store=store, step=f"take {step}", rows=len(rows))
+        take_all(tw, f"{store} take {len(rows)} {step}", dev, host, rows, table, flat)
+        out[step] = tw.close(dev)
+    return out
+
+
+def tiered_path_phase(table, files, rng, probe):
+    """The main path over the tiered store, device route against a numpy
+    twin in lockstep (see the module docstring, item 6)."""
+    clock = StoreClock()
+    tw = Twins(probe, clock)
+    ops.reset_counts()  # the tiered path starts here
+    try:
+        tiered_runs(tw, table, files, rng)
+    finally:
+        clock.restore()
+    launches = dict(ops.launches)  # the tiered path ends here
+    fallbacks = dict(ops.fallbacks)
+    emit({"phase": "tiered_path", "checked": "exact vs decode=numpy and the source; "
+          "identical tier_stats, io_stats, write_stats and modelled_time between the "
+          "routes after every step; logical IO and write trace equal the flat store's",
+          "launches": launches, "fallbacks": fallbacks})
+    for name in ("miniblock_decode", "fullzip_gather"):
+        check(launches[name] > 0, f"{name} never launched on the tiered path")
+    check(not fallbacks, f"eligible columns fell back to the host: {fallbacks}")
+    return launches
+
+
+def tiered_runs(tw, table, files, rng):
+    flat = DatasetReader(files, decode="numpy")
+    dev, host = (DatasetReader(files, store="tiered", decode=d) for d in (None, "numpy"))
+    cache = dev.store.levels[0].cache
+    check((len(dev.store.levels), cache.capacity_blocks, cache.policy, cache.admission)
+          == (1, 16384, "clock", "always"), "store='tiered' is not the reference's NVMe cache")
+    for k in TIERED_TAKES:
+        rows = rng.integers(0, ROWS, k)
+        res = cold_warm(tw, "tiered", dev, host, rows, table, flat)
+        if k == TIERED_TAKES[0]:
+            check(res["warm"]["modelled_io_ms"] < res["cold"]["modelled_io_ms"],
+                  f"tiered take {k}: warm is not cheaper than cold")
+            check(res["warm"]["tiers"][-1]["n_iops"] == 0, f"tiered take {k}: S3 served a warm take")
+    for r in (dev, host):
+        r.drop_caches()
+        r.reset_io()
+    tw.open(store="tiered", step="scan id, cold")
+    got, want = tw.call("tiered scan id", dev, host, lambda r: r.scan("id", io_chunk=TIERED_SCAN_CHUNK))
+    check(same_buffers(want, got) and same_values(table["id"], got), "tiered scan id")
+    check(dev.tier_stats()[-1].prefetch_iops > 0, "tiered scan id: readahead filled nothing")
+    tw.close(dev)
+    del dev, host, flat
+
+    dev, host = (DatasetReader(files, store="hot", decode=d) for d in (None, "numpy"))
+    res = cold_warm(tw, "hot", dev, host, rng.integers(0, ROWS, TIERED_TAKES[0]), table)
+    check(res["warm"]["modelled_io_ms"] < res["cold"]["modelled_io_ms"] and
+          res["warm"]["tiers"][-1]["n_iops"] == 0, "hot: warm take not served by the caches")
+    del dev, host
+
+    dev, host = (DatasetReader(files, store="tiered-auto", decode=d) for d in (None, "numpy"))
+    cache = dev.store.levels[0].cache
+    tw.open(store="tiered-auto", step="scan id, then takes")
+    flips = []
+    got, _ = tw.call("tiered-auto scan id", dev, host, lambda r: r.scan("id", io_chunk=TIERED_SCAN_CHUNK))
+    check(same_values(table["id"], got), "tiered-auto scan id != source")
+    flips.append(("scan id", cache.active_admission, cache.admission_flips))
+    rows = rng.integers(0, ROWS, TIERED_TAKES[0])
+    for _ in range(2):
+        take_all(tw, "tiered-auto take", dev, host, rows, table)
+        flips.append(("take", cache.active_admission, cache.admission_flips))
+    tw.rec["admission"] = flips
+    tw.close(dev)
+    del dev, host
+
+    dev, host = (Retriever(files, "emb", store="tiered", decode=d) for d in (None, "numpy"))
+    ids = rng.integers(0, ROWS, TIERED_TAKES[0])
+    cold = None
+    for step in ("cold", "warm"):
+        tw.open(store="tiered", step=f"Retriever.fetch {step}", rows=len(ids))
+        got, want = tw.call(f"fetch {step}", dev, host, lambda r: r.fetch(ids)[0],
+                            state=lambda r: twin_state(r.reader))
+        check(same_buffers(want, got) and same_values(table["emb"].take(ids), got),
+              f"fetch {step}: values")
+        rec = tw.close(dev.reader)
+        if step == "warm":
+            check(rec["modelled_io_ms"] < cold and rec["tiers"][-1]["n_iops"] == 0,
+                  "fetch warm: not served by the NVMe cache")
+        cold = rec["modelled_io_ms"]
+    del dev, host
+    tiered_writer(tw, table, files, rng)
+
+
+def tiered_writer(tw, table, files, rng):
+    """DatasetWriter at the reference's defaults (tiered, write-back): ingest
+    and commit, takes of the committed version, then a crash with an
+    uncommitted append in flight."""
+    rec = tw.open(store="tiered", step="DatasetWriter(files) ingest, write-back")
+    twins = []
+    for decode, key in ((None, "device"), ("numpy", "numpy")):
+        tw.clock.take()
+        s = time.perf_counter()
+        twins.append(DatasetWriter(files, decode=decode))
+        rec[f"{key}_wall_ms"] += (time.perf_counter() - s) * 1e3
+        rec["store_ms"][key] += tw.clock.take()
+    dev, host = twins
+    check(dev.flush_policy.mode == "write-back" and len(dev.store.levels) == 1,
+          "DatasetWriter() is not at the reference's defaults")
+    check(twin_state(dev) == twin_state(host), "writer ingest: the routes' state differs")
+    check(dev.dirty_bytes == host.dirty_bytes == 0, "writer ingest: dirty bytes after the commit")
+    flat = DatasetWriter(files, store="flat", flush=None, decode="numpy")
+    check(dataclasses.astuple(flat.write_stats()) == dataclasses.astuple(dev.write_stats()),
+          "writer ingest: write trace differs from the flat store's")
+    rec["write_stats"] = dataclasses.asdict(dev.write_stats())
+    rec["flush_events"] = dev.flush_policy.n_flush_events
+    del flat
+    tw.close(dev)
+
+    for w in (dev, host):
+        w.reset_io()
+    tw.open(store="tiered", step="DatasetWriter take", rows=TIERED_TAKES[0])
+    take_all(tw, "writer take", dev, host, rng.integers(0, ROWS, TIERED_TAKES[0]), table)
+    tw.close(dev)
+
+    rec = tw.open(store="tiered", step="append uncommitted, simulate_crash, scan")
+    extra = make_table(CRASH_ROWS, rng)
+    _, _ = tw.call("writer append", dev, host, lambda w: w.append(extra, commit=False))
+    torn, torn_np = tw.call("writer crash", dev, host, lambda w: w.simulate_crash())
+    check(torn == torn_np and torn > 0, f"writer crash: torn {torn} / {torn_np} bytes")
+    check(dev.tier_stats()[0].lost_bytes > 0, "writer crash: the NVMe tier lost nothing")
+    check(dev.version == 1 and dev.n_rows == ROWS, "writer crash: not back at version 1")
+    rec["torn_bytes"] = torn
+    for col in COLUMNS:
+        got, want = tw.call(f"writer scan {col}", dev, host, lambda w: w.scan(col))
+        check(same_buffers(want, got) and same_values(table[col], got),
+              f"writer scan {col} after the crash: != source")
+    tw.close(dev)
+
+
 def bitunpack_path_phase(rng):
     """The bitunpack kernel's own path: no reader calls it; the JAX package
     drives it at 2**20 values of 11 bits (kernel_bench)."""
@@ -804,7 +1170,7 @@ def kernel_case(name, a, kw):
         "operations": n_vals, "ops_per_s": INT_OPS_PER_S}
 
 
-PATH_ORDER = {"take": 0, "search": 1, "bitunpack": 2}
+PATH_ORDER = {"take": 0, "search": 1, "tiered": 2, "bitunpack": 3}
 
 
 def measure_phase(probe, smallest, launches, sweep, rng):
@@ -878,12 +1244,23 @@ def main() -> int:
     build_phase()
     sweep, smallest = sweep_phase()
     rng = np.random.default_rng(args.seed)
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        s = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - s
+        return out
+
+    timed("gather_streams", gather_streams_phase, np.random.default_rng(args.seed + 1))
     table, files = dataset_phase(rng)
     probe = Probe()
     probe.path = "take"
-    launches = {"take": take_path_phase(table, files, rng, probe)}
+    launches = {"take": timed("take", take_path_phase, table, files, rng, probe)}
     probe.path = "search"
-    launches["search"] = search_path_phase(table, files, rng, probe)
+    launches["search"] = timed("search", search_path_phase, table, files, rng, probe)
+    probe.path = "tiered"
+    launches["tiered"] = timed("tiered", tiered_path_phase, table, files, rng, probe)
     del files
     probe.path = "bitunpack"
     launches["bitunpack"] = bitunpack_path_phase(rng)
@@ -892,8 +1269,8 @@ def main() -> int:
         for name, n in counts.items():
             seen = sum(v for (k, p, _), v in probe.launched.items() if (k, p) == (name, path))
             check(seen == n, f"{name} on the {path} path: the probe saw {seen} of {n} launches")
-    kernels = measure_phase(probe, smallest, launches, sweep, rng)
-    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    kernels = timed("measure", measure_phase, probe, smallest, launches, sweep, rng)
+    emit({"phase": "done", "seconds": time.perf_counter() - t0, "phase_seconds": phase_s})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

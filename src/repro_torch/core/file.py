@@ -226,15 +226,21 @@ _READERS = {
 
 
 class FileReader:
-    """Reads a Lance-style file through the flat storage subsystem.
+    """Reads a Lance-style file through the tiered storage subsystem.
 
-    ``store`` selects the backing device (see
-    :func:`repro_torch.store.make_store`): ``None``/"flat" prices every read
-    on NVMe, "flat-s3" on a cold object store.  Every ``take``/``scan`` runs
-    as one scheduler :class:`~repro_torch.store.ReadBatch`; random access is
-    the batched decode-once pipeline (all needed chunks/spans submitted as
-    phase-grouped ``read_many`` batches, each span decoded exactly once, rows
-    fanned out to request order by a single permutation).
+    ``store`` selects the tier stack (see :func:`repro_torch.store.make_store`):
+    ``None``/"flat" prices every read on NVMe, "flat-s3" is a cold object
+    store, "tiered" an NVMe block cache over S3, "tiered-auto" the same with
+    workload-driven admission, "hot" RAM over NVMe over S3.  To customize
+    capacities/policies pass a callable ``disk -> TieredStore``; a ready
+    ``TieredStore`` instance is accepted only together with the ``Disk`` it
+    wraps.  ``readahead`` is the scheduler's (``"auto"``: on when the store
+    has a cache level).  Every ``take``/``scan`` runs as one scheduler
+    :class:`~repro_torch.store.ReadBatch` (a scan's is prefetch-flagged, so
+    readahead watches it); random access is the batched decode-once pipeline
+    (all needed chunks/spans submitted as phase-grouped ``read_many``
+    batches, each span decoded exactly once, rows fanned out to request
+    order by a single permutation).
 
     ``decode`` selects the decode routes: ``"numpy"`` (host) or ``"device"``
     (the CUDA kernels of :mod:`repro_torch.kernels` on ``device``).  Under
@@ -253,12 +259,12 @@ class FileReader:
     its own store the reader enqueues every read — rebased by ``base`` into
     the scheduler's global address space — onto the injected
     :class:`~repro_torch.store.IOScheduler`, so many files coalesce in one
-    dispatch.
+    dispatch and share one cache budget.
     """
 
     def __init__(self, file_bytes_or_disk, store=None, queue_depth: int = 256,
-                 decode: Optional[str] = None, scheduler=None, base: int = 0,
-                 device=None):
+                 readahead="auto", decode: Optional[str] = None, scheduler=None,
+                 base: int = 0, device=None):
         from ..kernels.ops import resolve_device
         from ..store import IOScheduler, make_store
 
@@ -272,9 +278,10 @@ class FileReader:
         if scheduler is not None:
             if store is not None:
                 raise ValueError("pass store or scheduler, not both")
-            if queue_depth != 256:
+            if queue_depth != 256 or readahead != "auto":
                 raise ValueError(
-                    "queue_depth is fixed by the injected scheduler")
+                    "queue_depth/readahead are fixed by the injected "
+                    "scheduler")
             if self.base < 0 or self.base + len(disk) > len(scheduler.store.disk):
                 raise ValueError(
                     "file does not fit the shared store at base "
@@ -285,7 +292,8 @@ class FileReader:
             if self.base:
                 raise ValueError("base requires an injected scheduler")
             self.store = make_store(store, disk)
-            self.scheduler = IOScheduler(self.store, queue_depth=queue_depth)
+            self.scheduler = IOScheduler(self.store, queue_depth=queue_depth,
+                                         readahead=readahead)
         self.meta, self.footer_bytes = read_footer(disk.read, len(disk))
         self.columns = {c["name"]: c for c in self.meta["columns"]}
         if decode is None:
@@ -344,7 +352,7 @@ class FileReader:
         return [r.take(rows, io) for r in readers]
 
     def scan(self, name: str, io_chunk: int = 8 << 20) -> A.Array:
-        with self.scheduler.batch(f"scan:{name}") as io:
+        with self.scheduler.batch(f"scan:{name}", prefetch=True) as io:
             return self.scan_into(name, io, io_chunk=io_chunk)
 
     def scan_into(self, name: str, io, io_chunk: int = 8 << 20) -> A.Array:
@@ -369,20 +377,25 @@ class FileReader:
         return sum(lm["bytes"] for c in cols for lm in c["leaves"])
 
     def reset_io(self):
-        """Zero the logical trace and tier counters."""
+        """Zero the logical trace and tier counters.  Cache residency
+        survives — warm tiers stay warm (use :meth:`drop_caches` for a
+        cold restart)."""
         self.scheduler.reset()
 
     def io_stats(self, coalesce_gap: int = 0):
         return self.scheduler.stats(coalesce_gap)
 
     def tier_stats(self):
-        """Per-tier dispatched-IO stats (the backing device)."""
+        """Per-tier dispatched-IO stats (fastest first, backing last)."""
         return self.store.tier_stats()
 
     def modelled_time(self, queue_depth: Optional[int] = None) -> float:
         """Modelled wall time of all IO since the last reset, priced on the
-        backing device."""
+        configured tier stack."""
         return self.scheduler.model_time(queue_depth)
+
+    def drop_caches(self):
+        self.store.drop_caches()
 
 
 def _proto_from(path, type_path, lm) -> ShreddedLeaf:

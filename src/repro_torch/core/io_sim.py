@@ -10,8 +10,10 @@ Results come in three tiers:
    characteristics (Samsung 970 EVO Plus NVMe; S3 from [4]).
 
 This is the port's copy of the healthy-device subset: the fault models
-(degradations, transient errors, blackouts) wait for ROADMAP.md, Queue 1
-item 4 (the full store).
+(degradations, transient errors, blackouts, correlated faults) wait for
+ROADMAP.md, Queue 1 item 4b.  The reference's ``HBM`` device model (a TPU's
+HBM-to-VMEM DMA regime) is deliberately not carried: the port prices no
+TPU.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 __all__ = [
-    "Disk", "DiskView", "IOStats", "DeviceModel",
+    "Disk", "DiskView", "IOTracker", "IOStats", "DeviceModel",
     "NVME", "S3", "DRAM", "model_time", "merge_phase_extents",
     "trace_stats",
 ]
@@ -215,8 +217,9 @@ def trace_stats(
     ops: Sequence[Tuple[int, int, int]], useful_bytes: int = 0,
     coalesce_gap: int = 0,
 ) -> IOStats:
-    """IOStats for a logical read trace (the batched scheduler in
-    ``repro_torch.store`` reports through it)."""
+    """IOStats for a logical read trace; single source of truth shared by the
+    legacy :class:`IOTracker` and the batched scheduler in
+    ``repro_torch.store``."""
     s = IOStats()
     s.n_iops = len(ops)
     s.bytes_read = sum(sz for _, sz, _ in ops)
@@ -225,6 +228,34 @@ def trace_stats(
     s.max_phase = max((p for _, _, p in ops), default=-1) + 1
     s.n_coalesced = sum(len(v) for v in merge_phase_extents(ops, coalesce_gap).values())
     return s
+
+
+class IOTracker:
+    """Counts every read.  ``phase`` expresses dependencies: a read at phase p
+    could only be issued after all reads at phases < p returned (the paper's
+    'issued in 3 phases' for Arrow List<String>).  The legacy per-read
+    tracker: the scheduler's logical stats must equal its stats on the same
+    trace."""
+
+    def __init__(self, disk: Disk, sector: int = 4096):
+        self.disk = disk
+        self.sector = sector
+        self.ops: List = []  # (offset, size, phase)
+
+    def read(self, offset: int, size: int, phase: int = 0) -> np.ndarray:
+        offset, size = int(offset), int(size)
+        self.ops.append((offset, size, phase))
+        return self.disk.read(offset, size)
+
+    def note_useful(self, nbytes: int) -> None:
+        self._useful = getattr(self, "_useful", 0) + int(nbytes)
+
+    def reset(self) -> None:
+        self.ops = []
+        self._useful = 0
+
+    def stats(self, coalesce_gap: int = 0) -> IOStats:
+        return trace_stats(self.ops, getattr(self, "_useful", 0), coalesce_gap)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,7 +12,13 @@ over the dataset's concatenated global address space (see
   queue drain — then stitches the per-fragment leaves together and restores
   request order with one shared
   :func:`~repro_torch.core.encodings_base.reorder_leaf_rows` permutation;
-* ``scan(column)`` streams every fragment through one batch.
+* ``scan(column)`` streams every fragment through one prefetch-flagged
+  batch, so ``SequentialReadahead`` sees a single global request stream and
+  keeps reading ahead **across fragment boundaries** (the inter-file gap is
+  just a footer, far below the readahead's ``max_gap``);
+* the scheduler's :class:`~repro_torch.store.WorkloadStats` watches the
+  dataset's scan/take mix and auto-selects the admission policy of any
+  cache level configured ``admission="auto"``.
 """
 
 from __future__ import annotations
@@ -37,19 +43,20 @@ class DatasetReader:
 
     ``files`` is the ordered fragment list (raw file bytes).  ``store``
     accepts the same specs as :func:`repro_torch.store.make_store`, resolved
-    once over the dataset's global disk.  ``decode`` and ``device`` are
+    once over the dataset's global disk, so "tiered" gives the whole dataset
+    a single NVMe budget.  ``decode`` and ``device`` are
     passed to every fragment's :class:`~repro_torch.core.file.FileReader`:
     the device routes run on CUDA unless ``device="cpu"``.
     """
 
     def __init__(self, files: Sequence[bytes], store=None,
-                 queue_depth: int = 256, decode: Optional[str] = None,
-                 device=None):
+                 queue_depth: int = 256, readahead="auto",
+                 decode: Optional[str] = None, device=None):
         from ..store import IOScheduler, make_store
 
         manifest, disk = build_dataset_disk(files)
         scheduler = IOScheduler(make_store(store, disk),
-                                queue_depth=queue_depth)
+                                queue_depth=queue_depth, readahead=readahead)
         self._bind(manifest, disk, scheduler, decode=decode, device=device)
 
     @classmethod
@@ -60,7 +67,7 @@ class DatasetReader:
         """View an already-materialized dataset (a manifest *version* over a
         shared disk + scheduler) without rebuilding the address space.  The
         dataset writer uses this for time travel: one reader per committed
-        version, all sharing the writer's store.  ``readers`` supplies
+        version, all sharing the writer's store/cache.  ``readers`` supplies
         pre-built per-fragment ``FileReader``\\ s (cached by the writer so a
         fragment's footer is parsed once, not once per version)."""
         self = cls.__new__(cls)
@@ -136,7 +143,7 @@ class DatasetReader:
 
     def scan(self, name: str, io_chunk: int = 8 << 20) -> A.Array:
         """Full-column scan across all fragments, in global row order."""
-        with self.scheduler.batch(f"scan:{name}") as io:
+        with self.scheduler.batch(f"scan:{name}", prefetch=True) as io:
             parts = [fr.scan_into(name, io, io_chunk=io_chunk)
                      for fr in self.fragments]
         return A.concat(parts)
@@ -153,6 +160,10 @@ class DatasetReader:
     def modelled_time(self, queue_depth: Optional[int] = None) -> float:
         return self.scheduler.model_time(queue_depth)
 
+    def workload_stats(self):
+        """The shared scheduler's scan/take mix observer."""
+        return self.scheduler.workload
+
     def search_cache_bytes(self, name: Optional[str] = None) -> int:
         return sum(fr.search_cache_bytes(name) for fr in self.fragments)
 
@@ -160,5 +171,9 @@ class DatasetReader:
         return sum(fr.data_bytes(name) for fr in self.fragments)
 
     def reset_io(self) -> None:
-        """Zero trace/tier counters."""
+        """Zero trace/tier counters; cache residency survives (warm stays
+        warm — :meth:`drop_caches` is the cold restart)."""
         self.scheduler.reset()
+
+    def drop_caches(self) -> None:
+        self.store.drop_caches()

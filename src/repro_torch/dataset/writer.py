@@ -1,33 +1,38 @@
-"""Dataset ingest path: appendable, versioned Lance datasets.
+"""Dataset ingest path: appendable, versioned Lance datasets over the
+write-back tiered store.
 
 ``DatasetWriter`` is the write-side dual of
 :class:`~repro_torch.dataset.reader.DatasetReader`: one growable global
 address space, one shared :class:`~repro_torch.store.TieredStore` +
-:class:`~repro_torch.store.IOScheduler`.
+:class:`~repro_torch.store.IOScheduler`, and a
+:class:`~repro_torch.store.FlushPolicy` deciding when appended bytes become
+durable on the backing device.
 
 * :meth:`append` encodes a table into a new fragment with the file writer
   (:func:`~repro_torch.core.file.write_table`), extends the global
   block-address space (8-aligned, append-only — committed bytes are never
   overwritten), and stages the fragment's bytes through one scheduler
-  ``WriteBatch``.
+  ``WriteBatch`` — write-through pays a backing (S3) drain per append,
+  write-back absorbs the blocks dirty into the NVMe tier and lets the flush
+  policy batch them.
 * :meth:`commit` is the durability fence: **flush-then-commit** — every
   dirty block is flushed to the backing device *before* the new manifest
-  version exists.
+  version exists, so a crash at any point of the flush+commit sequence
+  leaves every previously committed version readable (the torn bytes are
+  only ever inside uncommitted fragments).
 * :meth:`reader` opens any committed manifest version over the shared
   scheduler (time travel); :meth:`take`/:meth:`scan` serve the latest one.
 * :meth:`compact` rewrites runs of small fragments into one (reads priced
-  through the shared scheduler, the rewrite staged through the write path)
-  and commits the new fragment list as a version.
-* :meth:`simulate_crash` tears unflushed bytes off the media, drops
-  uncommitted fragments and rewinds the live state to the last committed
-  version.
+  through the shared scheduler, the rewrite staged through the write path),
+  commits the new fragment list as a version, and retargets the shared
+  cache by invalidating the replaced fragments' blocks.
+* :meth:`simulate_crash` is the durability model's teeth: unflushed (dirty)
+  bytes are torn off the media, uncommitted fragments vanish, and the live
+  state rewinds to the last committed version — per-tier ``lost_bytes``
+  records what the write-back latency trade put at risk.
 
-This is the port's copy on the flat store with write-through writes
-(``store="flat"``/``"flat-s3"``, ``flush=None``): every write is durable
-when its batch closes, so a crash loses only uncommitted fragments, never
-bytes.  The reference's defaults (``store="tiered"``,
-``flush="write-back"``) and every flush policy wait for ROADMAP.md,
-Queue 1 item 4 (the full store), and raise ``NotImplementedError``.
+This is the port's copy without the reference's tracer spans (item 5 of
+ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from ..core import arrays as A
 from ..core.file import FileReader, WriteOptions, write_table
 from ..core.io_sim import Disk, DiskView
 from ..kernels.ops import resolve_device
-from ..store import IOScheduler, make_store
+from ..store import FlushPolicy, IOScheduler, make_store
 
 from .manifest import FRAGMENT_ALIGN, Fragment, Manifest, footer_meta
 from .reader import DatasetReader
@@ -58,24 +63,29 @@ class DatasetWriter:
 
     ``store`` accepts the specs of :func:`repro_torch.store.make_store`
     (resolved over the writer's growable global disk).  ``flush`` selects
-    the write path; only ``None`` (no policy attached: writes behave
-    write-through) is ported.  ``files`` optionally seeds the dataset with
-    existing fragment bytes (ingested through the write path and committed
-    as v1).  ``decode`` and ``device`` are passed to every fragment's
+    the write path: a :class:`~repro_torch.store.FlushPolicy` mode string
+    (``"write-through"``, ``"write-back"``, ``"flush-on-evict"``), a ready
+    policy instance, or ``None`` (no policy attached: writes behave
+    write-through).  ``files`` optionally seeds the dataset with existing
+    fragment bytes (ingested through the write path and committed as v1).
+    ``decode`` and ``device`` are passed to every fragment's
     :class:`~repro_torch.core.file.FileReader`: the device routes run on
     CUDA unless ``device="cpu"``.
     """
 
     def __init__(self, files: Sequence[bytes] = (), store="tiered",
                  flush="write-back", opts: Optional[WriteOptions] = None,
-                 queue_depth: int = 256, decode: Optional[str] = None,
-                 device=None):
+                 queue_depth: int = 256, readahead="auto",
+                 decode: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         self.opts = opts or WriteOptions()
         self.disk = Disk(np.zeros(0, np.uint8))
         self.store = make_store(store, self.disk)
+        if isinstance(flush, str):
+            flush = FlushPolicy(flush)
         self.store.set_flush_policy(flush)
-        self.scheduler = IOScheduler(self.store, queue_depth=queue_depth)
+        self.scheduler = IOScheduler(self.store, queue_depth=queue_depth,
+                                     readahead=readahead)
         self._decode = decode
         self._columns: Optional[List[Dict]] = None
         self.fragments: List[Fragment] = []   # live (to-be-committed) list
@@ -97,7 +107,8 @@ class DatasetWriter:
 
         Its fragments land in the *same* global address space (tail-appended
         and 8-aligned like any append), so their blocks carry the same
-        sector ids and drain through the same scheduler as the parent's
+        sector ids, warm the same :class:`~repro_torch.store.BlockCache`
+        budget, and drain through the same scheduler queues as the parent's
         data — but it keeps its own schema, fragment list and manifest
         versions, so it can commit, time-travel and ``compact()``
         independently.  This is the index-as-fragments substrate of
@@ -123,6 +134,10 @@ class DatasetWriter:
 
     # -- geometry ------------------------------------------------------------
     @property
+    def flush_policy(self) -> Optional[FlushPolicy]:
+        return self.store.flush_policy
+
+    @property
     def version(self) -> int:
         """Latest committed manifest version (0 = nothing committed yet)."""
         return len(self.versions)
@@ -131,6 +146,11 @@ class DatasetWriter:
     def n_rows(self) -> int:
         """Rows visible at the latest committed version."""
         return self.versions[-1].n_rows if self.versions else 0
+
+    @property
+    def dirty_bytes(self) -> int:
+        """Bytes staged but not yet durable (lost if the process dies)."""
+        return sum(lvl.cache.dirty_bytes for lvl in self.store.levels)
 
     # -- ingest ---------------------------------------------------------------
     def _append_file(self, fb: bytes, label: str = "append") -> Fragment:
@@ -170,9 +190,11 @@ class DatasetWriter:
         return self.commit() if commit else None
 
     def commit(self) -> Optional[Manifest]:
-        """Flush-then-commit fence: (1) every dirty block is flushed to the
-        backing device; (2) only then is the new manifest version created.
-        Returns the committed manifest (the latest one when nothing new was
+        """Flush-then-commit fence.  Ordering is the crash-safety contract:
+        (1) every dirty block is flushed to the backing device; (2) only
+        then is the new manifest version created.  An interruption anywhere
+        leaves the previous version's bytes fully durable and the new
+        version nonexistent — never a torn committed manifest.  Returns the committed manifest (the latest one when nothing new was
         staged, or ``None`` for a still-empty dataset)."""
         self.scheduler.flush_barrier()  # (1) durability barrier
         if not self.fragments:
@@ -230,16 +252,21 @@ class DatasetWriter:
     def compact(self, max_rows: int) -> Manifest:
         """Rewrite every run of >=2 adjacent fragments whose combined rows
         fit ``max_rows`` into one fragment (global row order unchanged).
-        Reads go through the shared scheduler, the merged payload is staged
-        through the write path, and the whole rewrite commits as one new
-        manifest version.  Old versions still address the old fragments
-        (the address space is append-only)."""
+        Reads go through the shared scheduler (compaction IO is priced like
+        any other traffic), the merged payload is staged through the write
+        path, and the whole rewrite commits as one new manifest version —
+        after which the replaced fragments' blocks are invalidated so the
+        shared cache retargets its budget at the live layout.  Old versions
+        still address the old fragments (the address space is append-only)."""
         if max_rows <= 0:
             raise ValueError("max_rows must be positive")
         if self._pending:
             self.commit()
         if not self.versions:
             raise ValueError("nothing committed yet — append() first")
+        return self._compact(max_rows)
+
+    def _compact(self, max_rows: int) -> Manifest:
         groups: List[List[Fragment]] = []
         run: List[Fragment] = []
         for f in self.fragments:
@@ -254,6 +281,7 @@ class DatasetWriter:
             return self.versions[-1]  # nothing small enough to merge
         names = [c["name"] for c in self._columns]
         new_list: List[Fragment] = []
+        replaced: List[Fragment] = []
         for g in groups:
             if len(g) == 1:
                 new_list.append(g[0])
@@ -261,7 +289,8 @@ class DatasetWriter:
             readers = [self._reader_for(f) for f in g]
             table = {}
             for name in names:
-                with self.scheduler.batch(f"compact:{name}") as io:
+                with self.scheduler.batch(f"compact:{name}",
+                                          prefetch=True) as io:
                     parts = [r.scan_into(name, io) for r in readers]
                 table[name] = A.concat(parts)
             merged = self._append_file(write_table(table, self.opts),
@@ -270,6 +299,7 @@ class DatasetWriter:
             # at the group's position instead (it stays pending either way)
             self.fragments.pop()
             new_list.append(merged)
+            replaced.extend(g)
         # renumber the row space (order of the new list defines global rows)
         row = 0
         final: List[Fragment] = []
@@ -277,16 +307,26 @@ class DatasetWriter:
             final.append(dataclasses.replace(f, row_start=row))
             row += f.n_rows
         self.fragments = final
-        # the flat store caches no blocks, so no cache retargets after this
-        return self.commit()
+        m = self.commit()
+        # retarget the shared cache: the replaced fragments' blocks are dead
+        # weight for the live version (old versions re-fetch on demand)
+        for f in replaced:
+            b0 = f.base // self.store.sector
+            b1 = (f.base + f.nbytes + self.store.sector - 1) // self.store.sector
+            for lvl in self.store.levels:
+                for bid in range(b0, b1):
+                    if not lvl.cache.is_dirty(bid):
+                        lvl.cache.invalidate(bid)
+        return m
 
     # -- crash model ---------------------------------------------------------
     def simulate_crash(self) -> int:
         """Tear the unflushed state off the media and rewind to the last
-        committed version: the bytes of dirty blocks inside *uncommitted*
-        fragments are zeroed, uncommitted fragments vanish.  Returns the
-        number of bytes torn (0 on the write-through flat store, whose
-        writes are durable at batch close)."""
+        committed version: dirty blocks are discarded (counted as
+        ``lost_bytes`` per tier) and their bytes inside *uncommitted*
+        fragments are zeroed — committed fragments were flushed by their
+        commit fence, so a shared boundary block can only lose its
+        uncommitted tail.  Returns the number of bytes torn."""
         lost_extents = self.store.discard_dirty()
         pend = [(f.base, f.base + f.nbytes) for f in self._pending]
         torn = 0
@@ -321,3 +361,6 @@ class DatasetWriter:
 
     def reset_io(self) -> None:
         self.scheduler.reset()
+
+    def drop_caches(self) -> None:
+        self.store.drop_caches()

@@ -38,7 +38,7 @@ _ENTRY = {
                             [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fullzip_gather.cu": ("fullzip_gather_launch",
-                          [_P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P]),
+                          [_P, _P, _P, _L, _L, _I, _I, _I, _P, _I, _P]),
     "ivf_topk.cu": ("ivf_topk_launch",
                     [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),

@@ -20,7 +20,12 @@
 //     its ring with a fixed first share, then draws units from a ticket
 //     counter, so none idles while another still has a queue (with every
 //     unit split up front, the slowest blocks set the end of a large
-//     gather).
+//     gather).  The counter belongs to the launch: the caller passes 8
+//     bytes of device memory that no other running launch can hold (the
+//     wrapper takes a fresh block from PyTorch's stream-ordered caching
+//     allocator on the launch's stream), and the launcher zeroes it on that
+//     stream just before the kernel, so a CUDA graph captures the memset
+//     with the kernel.
 //     A ring of kStages slots keeps up to kStages units of loads in flight:
 //     each lane issues one 1-D bulk copy (cp.async.bulk, the TMA engine) of
 //     its row into the slot, counted on the slot's mbarrier by expect_tx;
@@ -51,7 +56,6 @@ constexpr int kStages = 4;          // slots per block
 constexpr int kMaxRowsPerUnit = 32; // one row per lane
 constexpr int kUnroll = 8;          // register route: words in flight per lane
 constexpr int kRouteBulk = 0, kRouteRegister = 1;
-constexpr int kTicketSlots = 64;    // bulk route: launches that may overlap
 // unit j + kStages - 1 is loaded before unit j is waited for
 static_assert(kStages >= 2, "the bulk ring refills one unit behind");
 
@@ -134,24 +138,17 @@ __device__ __forceinline__ Unit unit_at(int64_t u, int64_t n_take, int64_t strid
   return U;
 }
 
-// Work tickets of the bulk route, one counter per slot.  A launch draws
-// units from its slot's counter, so a block that runs ahead takes more of
-// them.  Every block draws until one draw fails, so a launch makes exactly
-// max(0, n_units - grid * kStages) + grid draws, and the block that gets the
-// last ticket zeroes the counter for the next launch (a CUDA graph's replays
-// included).  Launches that may run at once use different slots
-// (ops.fullzip_gather_slot: one per device and stream).
-__device__ unsigned long long g_next_unit[kTicketSlots];
-
+// Work tickets of the bulk route: units after each block's first share are
+// drawn from `next_unit`, zeroed for this launch alone, so a block that runs
+// ahead takes more of them.  Every block draws until one draw fails.
 __global__ void __launch_bounds__(32)
 gather_bulk_kernel(const uint8_t* __restrict__ zipped, const int32_t* __restrict__ rows,
                    uint8_t* __restrict__ out, int64_t n_take, int64_t stride, int64_t n_units,
-                   int ticket_slot) {
+                   unsigned long long* __restrict__ next_unit) {
   extern __shared__ __align__(128) uint8_t ring[];
   __shared__ __align__(8) uint64_t full[kStages];
   __shared__ int64_t unit_in[kStages];  // the unit each slot holds (lane 0's)
   const int lane = threadIdx.x;
-  unsigned long long* next_unit = &g_next_unit[ticket_slot];
   if (lane == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -164,14 +161,9 @@ gather_bulk_kernel(const uint8_t* __restrict__ zipped, const int32_t* __restrict
   // loads the lane's row id of it, so no issue waits on a global load or an
   // atomic.
   const int64_t first_drawn = static_cast<int64_t>(gridDim.x) * kStages;
-  const unsigned long long last_ticket =
-      static_cast<unsigned long long>(max(int64_t{0}, n_units - first_drawn)) + gridDim.x - 1;
   auto draw = [&]() -> int64_t {
     unsigned long long t = 0;
-    if (lane == 0) {
-      t = atomicAdd(next_unit, 1ULL);
-      if (t == last_ticket) atomicExch(next_unit, 0ULL);  // no draw comes after it
-    }
+    if (lane == 0) t = atomicAdd(next_unit, 1ULL);
     return first_drawn + static_cast<int64_t>(__shfl_sync(0xffffffffu, t, 0));
   };
   auto row_of = [&](int64_t u) -> int32_t {
@@ -258,13 +250,13 @@ gather_register_kernel(const uint8_t* __restrict__ zipped, const int32_t* __rest
 // success).  `route` is 0 (bulk: stride and both pointers multiples of 16)
 // or 1 (register, `word` bytes per access dividing the stride and both
 // pointers); `grid` is the number of persistent blocks (ops.fullzip_plan);
-// `ticket_slot` (bulk route, 0 <= slot < 64) must differ between launches
-// that may run at the same time.
+// `counter` (bulk route only, else null) is 8 bytes of device memory that
+// no launch which may run at the same time holds: it is zeroed on `stream`
+// before the kernel and is the launch's work-ticket counter.
 extern "C" int fullzip_gather_launch(const void* zipped, const void* rows, void* out,
                                      long long n_take, long long stride, int route, int word,
-                                     int grid, int ticket_slot, int device, void* stream) {
-  if (n_take <= 0 || stride <= 0 || grid <= 0 || ticket_slot < 0 || ticket_slot >= kTicketSlots)
-    return static_cast<int>(cudaErrorInvalidValue);
+                                     int grid, void* counter, int device, void* stream) {
+  if (n_take <= 0 || stride <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t align = reinterpret_cast<uintptr_t>(zipped) | reinterpret_cast<uintptr_t>(out) |
                           static_cast<uintptr_t>(stride);
   DeviceGuard guard(device);
@@ -288,7 +280,12 @@ extern "C" int fullzip_gather_launch(const void* zipped, const void* rows, void*
             ? (n_take + min(static_cast<long long>(kMaxRowsPerUnit), kStageBytes / stride) - 1) /
                   min(static_cast<long long>(kMaxRowsPerUnit), kStageBytes / stride)
             : n_take * ((stride + kStageBytes - 1) / kStageBytes);
-    gather_bulk_kernel<<<grid, 32, smem, s>>>(z, r, o, n_take, stride, n_units, ticket_slot);
+    unsigned long long* next_unit = static_cast<unsigned long long*>(counter);
+    if (next_unit == nullptr || reinterpret_cast<uintptr_t>(next_unit) % 8 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = cudaMemsetAsync(next_unit, 0, sizeof(*next_unit), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    gather_bulk_kernel<<<grid, 32, smem, s>>>(z, r, o, n_take, stride, n_units, next_unit);
   } else if (route == kRouteRegister) {
     if (word <= 0 || word > 16 || (word & (word - 1)) || align % word != 0)
       return static_cast<int>(cudaErrorInvalidValue);

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Dict
 
 import numpy as np
@@ -82,11 +81,6 @@ _GRID_MAX = (1 << 31) - 1
 _GATHER_STAGE_BYTES, _GATHER_STAGES, _GATHER_MAX_ROWS = 16384, 4, 32
 _GATHER_BLOCKS_PER_SM = {"bulk": 3, "register": 16}
 _GATHER_ROUTES = {"bulk": 0, "register": 1}
-# the bulk route's work-ticket counters (csrc/fullzip_gather.cu): launches
-# that may overlap need different ones, so each (device, stream) gets its own
-_GATHER_TICKET_SLOTS = 64
-_gather_slots: Dict[tuple, int] = {}
-_gather_slots_lock = threading.Lock()
 
 launches: Dict[str, int] = {"miniblock_decode": 0, "fullzip_gather": 0,
                             "ivf_topk": 0, "bitunpack": 0}
@@ -333,30 +327,26 @@ def fullzip_plan(n_take: int, stride: int, zipped_ptr: int, out_ptr: int,
     return {"route": route, "word": word, "units": units, "grid": grid}
 
 
-def fullzip_gather_slot(device_index: int, stream: int) -> int:
-    """The work-ticket counter of the gather's bulk route that launches on
-    ``stream`` of a device use: one per stream (launches on one stream run
-    one after another), the 64 counters shared round-robin past 64 streams."""
-    key = (device_index, stream)
-    slot = _gather_slots.get(key)
-    if slot is None:
-        with _gather_slots_lock:  # two new streams must not share a slot
-            slot = _gather_slots.setdefault(key, len(_gather_slots) % _GATHER_TICKET_SLOTS)
-    return slot
-
-
 def launch_fullzip_gather(zipped, rows, out) -> None:
     """Launch the ``fullzip_gather`` kernel on tensors the wrapper has
-    checked (contiguous, on one CUDA device, row ids in range, non-empty)."""
+    checked (contiguous, on one CUDA device, row ids in range, non-empty).
+
+    The bulk route draws work from a counter of its own: 8 bytes taken from
+    PyTorch's caching allocator on the launch's stream, which the C launcher
+    zeroes on that stream before the kernel.  The allocator is stream
+    ordered, so no launch still running holds the same block; under CUDA
+    graph capture the block comes from the graph's private pool and the
+    memset is captured with the kernel."""
     dev = zipped.device
     n_take, stride = out.shape
     plan = fullzip_plan(n_take, stride, zipped.data_ptr(), out.data_ptr(),
                         _sm_count(dev.index))
-    stream = _stream(dev)
+    counter = (torch.empty(1, dtype=torch.int64, device=dev)
+               if plan["route"] == "bulk" else None)
     err = _lib().fullzip_gather_launch(
         _ptr(zipped), _ptr(rows), _ptr(out), n_take, stride,
         _GATHER_ROUTES[plan["route"]], plan["word"], plan["grid"],
-        fullzip_gather_slot(dev.index, stream), dev.index, stream)
+        None if counter is None else _ptr(counter), dev.index, _stream(dev))
     _raise_on(err, "fullzip_gather")
     launches["fullzip_gather"] += 1
 

@@ -58,8 +58,9 @@ class Retriever:
 
     ``source`` is one Lance file (bytes), a list of fragment files (served
     through :class:`repro_torch.dataset.DatasetReader`), or a ready
-    ``FileReader``/``DatasetReader``.  ``store`` selects the backing device
-    (see :func:`repro_torch.store.make_store`).
+    ``FileReader``/``DatasetReader``.  ``store`` selects the tier stack
+    (see :func:`repro_torch.store.make_store`): ``"tiered"`` serves repeat
+    fetches from the NVMe cache instead of S3.
 
     ``decode`` selects the kernel route of both the file decode and the
     search's distance/top-k: ``None``, ``"device"`` and ``"pallas"`` (the

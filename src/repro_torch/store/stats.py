@@ -1,8 +1,11 @@
-"""Per-tier IO accounting for the flat store.
+"""Per-tier IO accounting for the tiered store.
 
-The backing device carries one :class:`TierStats`: dispatched IOPS and
-bytes (sector-aligned, i.e. what the device actually serves) and per-phase
-op counts so queue-depth-limited round trips can be priced.
+Every tier (the backing device and each cache level) carries one
+:class:`TierStats`: dispatched IOPS and bytes (sector-aligned, i.e. what the
+device actually serves), block-granular cache hit/miss/eviction counters
+(folded in from the level's :class:`~repro_torch.store.BlockCache` when the
+store reports), readahead fills, and per-phase op counts so
+queue-depth-limited round trips can be priced.
 
 ``model_time`` here is the same first-order device model as
 :func:`repro_torch.core.io_sim.model_time`, extended with a queue-depth term —
@@ -10,16 +13,13 @@ a phase with more outstanding requests than the device queue can hold pays
 one round-trip latency per queue drain, not one per phase.
 
 The write path adds the ingest-side counters: ``write_iops`` /
-``bytes_written`` are dispatched device writes; ``flush_iops`` /
-``flush_bytes`` the subset issued by a flusher; ``rmw_iops`` / ``rmw_bytes``
-the read-modify-write merge reads of sub-sector write edges; ``dirty_bytes``
-the resident not-yet-durable footprint and ``lost_bytes`` the dirty bytes a
-simulated crash discarded.  On the flat store writes are write-through, so
-the last two stay 0 there.
-
-This is the port's copy without the cache-tier counters (hits, misses,
-evictions, prefetch), which wait for ROADMAP.md, Queue 1 item 4 (the full
-store).
+``bytes_written`` are dispatched device writes (absorbed dirty extents on a
+cache tier, write-through or flush extents on the backing tier);
+``flush_iops`` / ``flush_bytes`` the subset issued by the flusher;
+``rmw_iops`` / ``rmw_bytes`` the read-modify-write merge reads of sub-sector
+write edges; ``dirty_bytes`` the tier's resident not-yet-durable footprint
+(folded in from the cache at query time) and ``lost_bytes`` the dirty bytes
+a simulated crash discarded.
 """
 
 from __future__ import annotations
@@ -39,8 +39,9 @@ class DrainRecord:
 
     Appended by ``TieredStore.end_batch``: ``tiers`` maps tier index (the
     ``tier_stats()`` order) to the ``(phase_ops, phase_bytes)`` buckets that
-    drain archived.  ``n_requests`` is the logical request count the batch
-    carried (rows of a ``take``; 0 for scans).
+    drain archived (fastest level first, backing device last).
+    ``n_requests`` is the logical request count the batch carried (rows of a
+    ``take``; 0 for scans and flushes).
     """
 
     label: str
@@ -59,33 +60,51 @@ class TierStats:
     """
 
     name: str
-    n_iops: int = 0          # dispatched device requests
-    bytes_read: int = 0      # sector-aligned bytes served
+    n_iops: int = 0          # dispatched device requests (incl. prefetch)
+    bytes_read: int = 0      # sector-aligned bytes served (incl. prefetch)
+    hits: int = 0            # block lookups served by this tier's cache
+    misses: int = 0          # block lookups that fell through this tier
+    evictions: int = 0       # blocks evicted from this tier's cache
+    prefetch_iops: int = 0   # subset of n_iops issued by readahead
+    prefetch_bytes: int = 0  # subset of bytes_read issued by readahead
     write_iops: int = 0      # dispatched device write requests
     bytes_written: int = 0   # sector-aligned bytes written to this tier
-    flush_iops: int = 0      # subset of write_iops issued by a flusher
-    flush_bytes: int = 0     # subset of bytes_written issued by a flusher
-    rmw_iops: int = 0        # read-modify-write merge reads (subset of n_iops)
+    flush_iops: int = 0      # subset of write_iops issued by the flusher
+    flush_bytes: int = 0     # subset of bytes_written issued by the flusher
+    rmw_iops: int = 0        # read-modify-write merge reads (sub-sector write
+                             # edges not resident in any cache tier); subset
+                             # of n_iops — see TieredStore.price_rmw
     rmw_bytes: int = 0       # subset of bytes_read issued by RMW merges
-    dirty_bytes: int = 0     # resident dirty bytes
+    dirty_bytes: int = 0     # resident dirty bytes (folded in at query time)
     lost_bytes: int = 0      # dirty bytes discarded by a simulated crash
     max_phase: int = 0       # deepest dependency phase seen (+1)
     phase_ops: Dict[int, int] = dataclasses.field(default_factory=dict)
     phase_bytes: Dict[int, int] = dataclasses.field(default_factory=dict)
     batch_phases: List[Dict[int, int]] = dataclasses.field(default_factory=list)
 
-    def add_op(self, nbytes: int, phase: int) -> None:
+    @property
+    def hit_rate(self) -> Optional[float]:
+        """Block-lookup hit rate, or ``None`` before any lookup — never
+        NaN."""
+        n = self.hits + self.misses
+        return self.hits / n if n else None
+
+    def add_op(self, nbytes: int, phase: int, prefetch: bool = False) -> None:
         self.n_iops += 1
         self.bytes_read += int(nbytes)
         self.phase_ops[int(phase)] = self.phase_ops.get(int(phase), 0) + 1
         self.phase_bytes[int(phase)] = (
             self.phase_bytes.get(int(phase), 0) + int(nbytes))
         self.max_phase = max(self.max_phase, int(phase) + 1)
+        if prefetch:
+            self.prefetch_iops += 1
+            self.prefetch_bytes += int(nbytes)
 
     def add_write_op(self, nbytes: int, phase: int, flush: bool = False) -> None:
-        """One dispatched device *write*.  Writes share the per-phase op
-        buckets with reads, so a drain's round-trip pricing covers both
-        directions of traffic."""
+        """One dispatched device *write* (an absorbed dirty extent on a cache
+        tier, a write-through or flush extent on the backing tier).  Writes
+        share the per-phase op buckets with reads, so a drain's round-trip
+        pricing covers both directions of traffic."""
         self.write_iops += 1
         self.bytes_written += int(nbytes)
         self.phase_ops[int(phase)] = self.phase_ops.get(int(phase), 0) + 1
@@ -137,6 +156,8 @@ class TierStats:
 
     def reset(self) -> None:
         self.n_iops = self.bytes_read = 0
+        self.hits = self.misses = self.evictions = 0
+        self.prefetch_iops = self.prefetch_bytes = 0
         self.write_iops = self.bytes_written = 0
         self.flush_iops = self.flush_bytes = 0
         self.rmw_iops = self.rmw_bytes = 0

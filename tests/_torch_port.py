@@ -114,14 +114,22 @@ def assert_same_array(want, got):
         np.testing.assert_array_equal(want.values, got.values)
 
 
+def assert_same_tiers(want, got):
+    """Every tier's counters identical, field by field (hits, misses,
+    evictions, prefetch, reads, writes, flushes, RMW, dirty and lost bytes,
+    phases and archived drains): the two packages' TierStats share their
+    fields and order."""
+    wt, gt = want.tier_stats(), got.tier_stats()
+    assert len(wt) == len(gt)
+    for w, g in zip(wt, gt):
+        assert dataclasses.astuple(w) == dataclasses.astuple(g), (w, g)
+
+
 def assert_same_io(want_reader, got_reader):
-    """Identical logical IO trace, device-level stats and modelled time."""
+    """Identical logical IO trace, every tier's stats and modelled time."""
     assert dataclasses.astuple(want_reader.io_stats()) == \
         dataclasses.astuple(got_reader.io_stats())
-    w = want_reader.tier_stats()[-1]
-    g = got_reader.tier_stats()[-1]
-    assert (w.n_iops, w.bytes_read, w.max_phase, w.batch_phases) == \
-        (g.n_iops, g.bytes_read, g.max_phase, g.batch_phases)
+    assert_same_tiers(want_reader, got_reader)
     assert want_reader.modelled_time() == got_reader.modelled_time()
 
 
@@ -129,21 +137,13 @@ def r_opts(encoding: str, **kw) -> RWriteOptions:
     return RWriteOptions(encoding, **kw)
 
 
-TIER_FIELDS = ("n_iops", "bytes_read", "write_iops", "bytes_written",
-               "flush_iops", "flush_bytes", "rmw_iops", "rmw_bytes",
-               "dirty_bytes", "lost_bytes", "max_phase", "phase_ops",
-               "phase_bytes", "batch_phases")
-
-
 def assert_same_writer_io(want, got):
     """Identical read and write traces, per-tier read/write/flush/RMW/dirty/
-    lost counters and modelled time of two dataset writers on the flat
-    store."""
+    lost and cache counters, dirty bytes and modelled time of two dataset
+    writers."""
     assert dataclasses.astuple(want.io_stats()) == dataclasses.astuple(got.io_stats())
     assert dataclasses.astuple(want.write_stats()) == \
         dataclasses.astuple(got.write_stats())
-    wt, gt = want.tier_stats(), got.tier_stats()
-    assert len(wt) == len(gt) == 1
-    for f in TIER_FIELDS:
-        assert getattr(wt[0], f) == getattr(gt[0], f), f
+    assert_same_tiers(want, got)
+    assert want.dirty_bytes == got.dirty_bytes
     assert want.modelled_time() == got.modelled_time()

@@ -1,7 +1,7 @@
 """chip_smoke.py, rehearsed on the CPU (tools/rehearse_chip_smoke.py): every
 phase runs at a tiny size with the kernels' plain versions and the CUDA
-measurement stubbed, and the result lines keep the shape the card's run
-must print.  No number here is a measurement."""
+measurement, streams and graphs stubbed, and the result lines keep the shape
+the card's run must print.  No number here is a measurement."""
 
 import json
 import subprocess
@@ -33,12 +33,25 @@ def test_chip_smoke_rehearses_on_the_cpu():
     entries = {(k["name"], k["path"], k["step"]) for k in kernels}
     assert len(entries) == len(kernels)
     assert {("miniblock_decode", "take", None), ("miniblock_decode", "search", None),
+            ("miniblock_decode", "tiered", None), ("fullzip_gather", "tiered", None),
             ("fullzip_gather", "take", None), ("fullzip_gather", "search", None),
             ("ivf_topk", "search", "probe"), ("bitunpack", "bitunpack", None),
             ("bitunpack", "bitunpack", "2**24")} <= entries
     assert {s for n, _, s in entries if n == "ivf_topk"} == {
         "probe", "candidates q=1", "candidates q=4", "candidates q=8"}
     phases = [json.loads(ln).get("phase") for ln in lines if ln.startswith("{")]
-    for phase in ("device", "build", "kernels", "take_path", "search_path",
-                  "bitunpack_path", "done"):
+    for phase in ("device", "build", "kernels", "gather_streams", "take_path", "search_path",
+                  "tiered", "tiered_path", "bitunpack_path", "done"):
         assert phase in phases
+    records = [json.loads(ln) for ln in lines if ln.startswith('{"phase"')]
+    streams = next(r for r in records if r["phase"] == "gather_streams")
+    assert streams["rows_wrong"] == {"streams": 0, "graph": 0, "direct": 0}
+    steps = {(r["store"], r["step"]) for r in records if r["phase"] == "tiered"}
+    assert {("tiered", "take cold"), ("tiered", "take warm"), ("tiered", "scan id, cold"),
+            ("hot", "take warm"), ("tiered-auto", "scan id, then takes"),
+            ("tiered", "Retriever.fetch warm"),
+            ("tiered", "DatasetWriter(files) ingest, write-back"),
+            ("tiered", "append uncommitted, simulate_crash, scan")} <= steps
+    tiered = next(r for r in records if r["phase"] == "tiered_path")
+    assert tiered["launches"]["miniblock_decode"] > 0 and tiered["launches"]["fullzip_gather"] > 0
+    assert tiered["fallbacks"] == {}

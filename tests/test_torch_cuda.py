@@ -127,6 +127,71 @@ def test_cuda_fullzip_gather_sweep(cuda_device):
         assert torch.equal(ops.fullzip_gather(z, r), ref.fullzip_gather_ref(z, r)), label
 
 
+def _gather_input(dev, rng, n=16429, stride=1536):
+    """The take path's gather shape: ``n`` zipped rows of ``stride`` bytes."""
+    return torch.from_numpy(rng.integers(0, 256, (n, stride), dtype=np.uint8)).to(dev)
+
+
+def _gather_rows(dev, rng, n):
+    return torch.from_numpy(rng.integers(0, n, n).astype(np.int32)).to(dev)
+
+
+def test_cuda_fullzip_gather_on_65_streams_at_once(cuda_device):
+    """More streams than the bulk route once had work counters (64): every
+    launch has its own, so no output misses or repeats a unit of rows.
+    Outputs start as a sentinel, so a skipped unit shows."""
+    rng = np.random.default_rng(65)
+    zipped = _gather_input(cuda_device, rng)
+    n = zipped.shape[0]
+    main = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream() for _ in range(65)]
+    for _ in range(2):
+        rows = [_gather_rows(cuda_device, rng, n) for _ in streams]
+        outs = [torch.full_like(zipped, 0xA5) for _ in streams]
+        for st in streams:
+            st.wait_stream(main)
+        for st, r, o in zip(streams, rows, outs):
+            with torch.cuda.stream(st):
+                ops.launch_fullzip_gather(zipped, r, o)
+        for st in streams:
+            main.wait_stream(st)
+        torch.cuda.synchronize()
+        for r, o in zip(rows, outs):
+            assert torch.equal(o, ref.fullzip_gather_ref(zipped, r))
+
+
+def test_cuda_fullzip_gather_graph_replayed_on_another_stream(cuda_device):
+    """A CUDA graph captured on stream A replays on stream B while a direct
+    launch runs on A: the graph's counter is its own (captured with its
+    memset from the graph's pool), so both outputs are exact, 20 times."""
+    rng = np.random.default_rng(66)
+    zipped = _gather_input(cuda_device, rng)
+    n = zipped.shape[0]
+    rows_g, rows_d = _gather_rows(cuda_device, rng, n), _gather_rows(cuda_device, rng, n)
+    want_g = ref.fullzip_gather_ref(zipped, rows_g)
+    want_d = ref.fullzip_gather_ref(zipped, rows_d)
+    out_g, out_d = torch.full_like(zipped, 0xA5), torch.full_like(zipped, 0xA5)
+    a, b = torch.cuda.Stream(), torch.cuda.Stream()
+    for st in (a, b):
+        st.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(a):
+        ops.launch_fullzip_gather(zipped, rows_g, out_g)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=a):
+        out_g.fill_(0xA5)
+        ops.launch_fullzip_gather(zipped, rows_g, out_g)
+    torch.cuda.synchronize()
+    for _ in range(20):
+        with torch.cuda.stream(b):
+            graph.replay()
+        with torch.cuda.stream(a):
+            out_d.fill_(0xA5)
+            ops.launch_fullzip_gather(zipped, rows_d, out_d)
+        torch.cuda.synchronize()
+        assert torch.equal(out_g, want_g) and torch.equal(out_d, want_d)
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     z = torch.zeros((5, 16), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(IndexError):

@@ -1,9 +1,11 @@
 """The port's DatasetReader against the JAX package's, over 3 fragments.
 
 Takes (global rows, unsorted, duplicated, crossing fragment boundaries) and
-scans give the same values, logical IO and modelled time as the reference's
-``decode="pallas"`` route; ``write_fragments`` writes the same files.
-Tolerance 0 throughout.
+scans give the same values, logical IO, per-tier stats and modelled time as
+the reference's ``decode="pallas"`` route, on the flat store and on every
+cached store spec (cold, warm, readahead scans, cold restarts, a cache small
+enough to evict); the device and numpy routes leave the same tier trace;
+``write_fragments`` writes the same files.  Tolerance 0 throughout.
 """
 
 import numpy as np
@@ -11,12 +13,16 @@ import pytest
 
 from repro.dataset import DatasetReader as RDatasetReader
 from repro.dataset import write_fragments as r_write_fragments
+from repro.store import TieredStore as RTieredStore
 from repro_torch.core.file import WriteOptions
 from repro_torch.dataset import DatasetReader, Manifest, write_fragments
 from repro_torch.kernels import ops
+from repro_torch.store import TieredStore
 
 from _torch_port import (assert_same_array, assert_same_io, make_array,
                          messy_rows, r_opts, to_port)
+
+COLUMNS = ("id", "score", "tags", "name", "emb", "quad")
 
 N_ROWS = 6000
 
@@ -105,3 +111,67 @@ def test_manifest_rejects_mismatched_schemas(fragments):
         Manifest.from_files([files[0], other[0]])
     with pytest.raises(ValueError):
         Manifest.from_files([])
+
+
+def _stores(spec):
+    """(reference spec, port spec): a spec string, or a 24-block NVMe cache
+    over S3 built by each package's own TieredStore."""
+    if spec != "small":
+        return spec, spec
+    return (lambda d: RTieredStore.cached(d, cache_bytes=24 * 4096),
+            lambda d: TieredStore.cached(d, cache_bytes=24 * 4096))
+
+
+@pytest.mark.parametrize("spec", ["tiered", "hot", "tiered-auto", "small"])
+def test_tiered_dataset_matches_reference(fragments, spec):
+    """Cold takes, warm repeats, readahead scans crossing the fragments and
+    a cold restart: the reference, the port's device route and its numpy
+    route give the same values, and identical logical IO, tier stats
+    (hits, misses, evictions, prefetch) and modelled time after every
+    step."""
+    _, files = fragments
+    r_spec, p_spec = _stores(spec)
+    want = RDatasetReader(files, store=r_spec)
+    dev = DatasetReader(files, store=p_spec, device="cpu")
+    host = DatasetReader(files, store=p_spec, decode="numpy", device="cpu")
+    rows = messy_rows(N_ROWS, 700, np.random.default_rng(17))
+    ops.reset_counts()
+    evictions = 0
+    for step in ("cold", "warm", "scan", "dropped"):
+        for col in COLUMNS:
+            for r in (want, dev, host):
+                r.reset_io()
+                if step == "dropped":
+                    r.drop_caches()
+            if step == "scan":
+                ref_val = want.scan(col, io_chunk=16 * 1024)
+                got = [r.scan(col, io_chunk=16 * 1024) for r in (dev, host)]
+            else:
+                ref_val = want.take(col, rows)
+                got = [r.take(col, rows) for r in (dev, host)]
+            for g in got:
+                assert_same_array(ref_val, g)
+            assert_same_io(want, dev)
+            assert_same_io(dev, host)
+            w, d = want.workload_stats(), dev.workload_stats()
+            assert (w.scan_bytes, w.take_bytes, w.preferred_admission()) == \
+                (d.scan_bytes, d.take_bytes, d.preferred_admission())
+            evictions += dev.tier_stats()[0].evictions
+    assert (evictions > 0) == (spec == "small")
+    assert ops.launches == {"miniblock_decode": 0, "fullzip_gather": 0,
+                            "ivf_topk": 0, "bitunpack": 0}
+
+
+def test_tiered_dataset_scan_readahead_crosses_fragments(fragments):
+    """One prefetch-flagged batch per dataset scan: readahead's high-water
+    mark passes into the next fragment, as the reference's does."""
+    _, files = fragments
+    want = RDatasetReader(files, store="tiered")
+    got = DatasetReader(files, store="tiered", device="cpu")
+    assert_same_array(want.scan("name", io_chunk=4096), got.scan("name", io_chunk=4096))
+    assert got.scheduler.n_batches == 1
+    assert got.scheduler.readahead._ra_until == want.scheduler.readahead._ra_until \
+        > got.manifest.fragments[1].base
+    nvme, s3 = got.tier_stats()
+    assert s3.prefetch_iops > 0 and nvme.hits > 0
+    assert_same_io(want, got)

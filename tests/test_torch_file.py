@@ -231,8 +231,30 @@ def test_unported_encodings_raise(encoding, kw):
 
 @pytest.mark.parametrize("spec", ["tiered", "tiered-auto", "hot"])
 def test_unported_store_specs_raise(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_store(spec, None)
+    """The cached specs (the name is from when they raised): a cold take, a
+    warm repeat, a readahead scan and a cold restart after ``drop_caches``
+    price exactly as the reference's, tier by tier, on both decode routes."""
+    arr, fb, rng = _written("nested-list", "lance", 12)
+    rows = messy_rows(len(arr), 97, rng)
+    for decode, r_decode in (("device", "pallas"), ("numpy", "numpy")):
+        want = RFileReader(fb, store=spec, decode=r_decode)
+        got = FileReader(fb, store=spec, decode=decode, device="cpu")
+        assert len(got.store.levels) == len(want.store.levels) > 0
+        assert got.store.levels[0].cache.admission == \
+            ("auto" if spec == "tiered-auto" else "always")
+        for step in ("cold", "warm", "scan", "dropped"):
+            for r in (want, got):
+                r.reset_io()
+                if step == "dropped":
+                    r.drop_caches()
+            if step == "scan":
+                assert_same_array(want.scan("c", io_chunk=4096),
+                                  got.scan("c", io_chunk=4096))
+            else:
+                assert_same_array(want.take("c", rows), got.take("c", rows))
+            assert_same_io(want, got)
+            if step == "warm":
+                assert got.tier_stats()[-1].n_iops == 0 and got.tier_stats()[0].hits > 0
 
 
 def test_flat_s3_store_prices_like_the_reference():

@@ -366,7 +366,11 @@ def test_gather_kernel_constants_match_the_launcher():
         ops._GATHER_STAGE_BYTES, ops._GATHER_STAGES, ops._GATHER_MAX_ROWS)
     assert {"bulk": int(c["kRouteBulk"]), "register": int(c["kRouteRegister"])} == \
         ops._GATHER_ROUTES
-    assert int(c["kTicketSlots"]) == ops._GATHER_TICKET_SLOTS
+    # the bulk route's work counter is the launch's own: the source keeps no
+    # __device__ variable that two launches could share
+    text = (build.CSRC / "fullzip_gather.cu").read_text()
+    assert "kTicketSlots" not in c
+    assert not re.search(r"^\s*__device__\s+(?!__forceinline__)[^(]*;", text, re.M)
     # the bulk ring of the blocks an SM holds fits its 228 KB of shared memory
     per_block = ops._GATHER_STAGES * ops._GATHER_STAGE_BYTES + 1024
     assert ops._GATHER_BLOCKS_PER_SM["bulk"] * per_block <= 228 * 1024
@@ -413,19 +417,42 @@ def test_ivf_plan_covers_every_k_and_n(qn, sms):
             assert ops.ivf_plan(qn, n, k, sms) == p
 
 
-def test_fullzip_gather_slots_are_per_stream():
-    """Launches on one stream share a work-ticket counter (they run in
-    turn); each other stream of a device gets its own, round-robin."""
-    ops._gather_slots.clear()
-    try:
-        a = ops.fullzip_gather_slot(0, 1000)
-        assert ops.fullzip_gather_slot(0, 1000) == a
-        others = {ops.fullzip_gather_slot(0, 2000 + i) for i in range(ops._GATHER_TICKET_SLOTS - 1)}
-        assert a not in others and len(others) == ops._GATHER_TICKET_SLOTS - 1
-        assert ops.fullzip_gather_slot(1, 1000) == a  # the 65th stream wraps around
-        assert all(0 <= s < ops._GATHER_TICKET_SLOTS for s in ops._gather_slots.values())
-    finally:
-        ops._gather_slots.clear()
+def test_fullzip_gather_counter_is_per_launch(monkeypatch):
+    """The bulk route gets a work counter of its own at every launch: an
+    8-byte block allocated on the launch's device, passed to the C launcher
+    (which zeroes it on the launch's stream); the register route gets none.
+    No slot table is kept between launches."""
+    calls = []
+
+    class Lib:
+        def fullzip_gather_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(ops, "_lib", lambda: Lib())
+    monkeypatch.setattr(ops, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(ops, "_stream", lambda device: 0)
+    allocated = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        allocated.append((tuple(t.shape), t.dtype, t.device))
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    rows = torch.tensor([3, 0, 3, 1], dtype=torch.int32)
+    n0 = ops.launches["fullzip_gather"]
+    for stride in (1536, 1536, 33):
+        zipped = real_empty((4, stride), dtype=torch.uint8)
+        out = real_empty((4, stride), dtype=torch.uint8)
+        route = ops.fullzip_plan(4, stride, zipped.data_ptr(), out.data_ptr(), 132)["route"]
+        ops.launch_fullzip_gather(zipped, rows, out)
+        counter = calls[-1][8]
+        assert (counter is None) == (route == "register")
+    assert allocated == [((1,), torch.int64, torch.device("cpu"))] * 2
+    assert ops.launches["fullzip_gather"] == n0 + 3
+    assert not hasattr(ops, "fullzip_gather_slot") and not hasattr(ops, "_gather_slots")
 
 
 def test_ivf_plan_at_the_main_path_shapes():

@@ -1,11 +1,13 @@
-"""The port's DatasetWriter against the JAX package's, on the flat store with
-write-through writes (``store="flat", flush=None``).
+"""The port's DatasetWriter against the JAX package's: on the flat store with
+write-through writes (``store="flat", flush=None``), at the reference's
+defaults (``store="tiered", flush="write-back"``), and on every cached store
+spec under every flush policy.
 
 The same appends, commits, compactions and crashes run on both packages; every
 take and scan must give the same buffers, at every committed version, and the
-read trace, write trace, per-tier counters and modelled time must be
-identical.  Tolerance 0 throughout.  The reference's defaults (a tiered store
-with write-back) are not ported and must raise.
+read trace, write trace, every tier's counters (hits, misses, evictions,
+prefetch, dirty, lost, RMW), dirty bytes and modelled time must be identical.
+Tolerance 0 throughout.
 """
 
 import numpy as np
@@ -15,10 +17,12 @@ import torch
 from repro.core.file import WriteOptions as RWriteOptions
 from repro.dataset import DatasetWriter as RDatasetWriter
 from repro.dataset import write_fragments as r_write_fragments
+from repro.store import TieredStore as RTieredStore
 from repro_torch.core.file import WriteOptions
 from repro_torch.core.io_sim import Disk, DiskView
 from repro_torch.dataset import DatasetWriter
 from repro_torch.kernels import ops
+from repro_torch.store import TieredStore
 
 from _torch_port import (assert_same_array, assert_same_writer_io, make_array,
                          messy_rows, to_port)
@@ -36,11 +40,20 @@ def _table(lo: int, n: int):
 class Pair:
     """A reference writer and a port writer driven in lockstep."""
 
-    def __init__(self, files=(), store="flat", encoding="lance"):
-        self.want = RDatasetWriter(files=files, store=store, flush=None,
-                                   opts=RWriteOptions(encoding))
-        self.got = DatasetWriter(files=files, store=store, flush=None,
-                                 opts=WriteOptions(encoding), device="cpu")
+    def __init__(self, files=(), store="flat", encoding="lance", flush=None,
+                 decode=None):
+        """``store`` is a spec string, or ``f(TieredStore, disk)`` building
+        each package's store with its own ``TieredStore`` class."""
+        r_decode = {"device": "pallas"}.get(decode, decode)
+        r_store, p_store = store, store
+        if callable(store):
+            r_store = lambda d: store(RTieredStore, d)  # noqa: E731
+            p_store = lambda d: store(TieredStore, d)  # noqa: E731
+        self.want = RDatasetWriter(files=files, store=r_store, flush=flush,
+                                   opts=RWriteOptions(encoding), decode=r_decode)
+        self.got = DatasetWriter(files=files, store=p_store, flush=flush,
+                                 opts=WriteOptions(encoding), decode=decode,
+                                 device="cpu")
 
     def append(self, table, commit=True):
         a = self.want.append(table, commit=commit)
@@ -207,8 +220,139 @@ def test_schema_mismatch_and_bad_versions():
                                 {"store": "flat", "flush": "write-through"},
                                 {"store": "hot", "flush": None}])
 def test_reference_defaults_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        DatasetWriter(device="cpu", **kw)
+    """The reference's defaults and the specs that once raised (the name is
+    from then): appends, commits, an uncommitted append and a crash behave
+    as the reference's, with identical stats after every step."""
+    want = RDatasetWriter(opts=RWriteOptions("lance"), **kw)
+    got = DatasetWriter(opts=WriteOptions("lance"), device="cpu", **kw)
+    assert len(got.store.levels) == len(want.store.levels)
+    assert (got.flush_policy is None) == (want.flush_policy is None)
+    if got.flush_policy is not None:
+        assert got.flush_policy.mode == want.flush_policy.mode
+    for lo, n, commit in ((0, 60, True), (60, 50, True), (110, 40, False)):
+        t = _table(lo, n)
+        want.append(t, commit=commit)
+        got.append({k: to_port(v) for k, v in t.items()}, commit=commit)
+        assert_same_writer_io(want, got)
+    rows = messy_rows(110, 40, np.random.default_rng(3))
+    for col in COLUMNS:
+        assert_same_array(want.take(col, rows), got.take(col, rows))
+        assert_same_writer_io(want, got)
+    assert want.simulate_crash() == got.simulate_crash()
+    assert_same_writer_io(want, got)
+    for col in COLUMNS:
+        assert_same_array(want.scan(col), got.scan(col))
+    assert_same_writer_io(want, got)
+
+
+def _tiered_steps(p):
+    """Appends (one uncommitted, then committed), reads at every version
+    cold and warm, a compaction that retargets the cache, a crash with an
+    uncommitted append in flight, and appends after it — the stats compared
+    after every step."""
+    p.append(_table(0, 90))
+    p.check_io()
+    p.append(_table(90, 70), commit=False)
+    p.check_io()
+    a, b = p.both(lambda w: w.commit())
+    assert a.version == b.version == 2
+    p.check_io()
+    for lo in (160, 200, 240):
+        p.append(_table(lo, 40))
+    p.check_io()
+    p.check_reads(rows_seed=1)
+    p.check_io()
+    p.both(lambda w: w.drop_caches())
+    p.check_reads(2, rows_seed=2)  # cold again, an older version
+    p.check_io()
+    a, b = p.both(lambda w: w.compact(max_rows=200))
+    assert a.version == b.version and len(b.fragments) == len(a.fragments)
+    p.check_io()
+    p.check_reads(rows_seed=3)
+    p.check_io()
+    p.append(_table(280, 50), commit=False)
+    p.check_io()
+    torn = p.both(lambda w: w.simulate_crash())
+    assert torn[0] == torn[1]
+    p.check_io()
+    p.check_reads(rows_seed=4)
+    p.append(_table(280, 30))
+    p.check_reads(rows_seed=5)
+    p.check_io()
+    return torn[1]
+
+
+@pytest.mark.parametrize("flush", ["write-back", "flush-on-evict", "write-through"])
+@pytest.mark.parametrize("store", ["tiered", "hot", "tiered-auto"])
+def test_tiered_writer_matches_reference(store, flush):
+    p = Pair(store=store, flush=flush)
+    torn = _tiered_steps(p)
+    lost = sum(t.lost_bytes for t in p.got.tier_stats())
+    if flush == "write-through":
+        assert torn == 0 and lost == 0
+    else:  # the uncommitted append was still dirty when it crashed
+        assert torn > 0 and lost > 0
+
+
+@pytest.mark.parametrize("flush", ["write-back", "flush-on-evict"])
+def test_tiered_writer_under_cache_pressure_matches_reference(flush):
+    """A 16-block cache: write-back's watermark and deadline flushes and
+    flush-on-evict's evictions all fire, in the same drains as the
+    reference's."""
+    small = lambda cls, d: cls.cached(d, cache_bytes=16 * 4096)  # noqa: E731
+    p = Pair(store=small, flush=flush)
+    _tiered_steps(p)
+    s3 = p.got.tier_stats()[-1]
+    assert p.got.tier_stats()[0].evictions > 0 and s3.flush_iops > 0
+    policy = p.got.flush_policy
+    assert policy.n_flush_events == p.want.flush_policy.n_flush_events > 0
+
+
+def test_flush_fault_injection_prefix_matches_reference():
+    """A commit whose flush dies after one extent: both packages keep the
+    same durable prefix, raise, and after the crash read the last committed
+    version back."""
+    from repro.store import SimulatedCrash as RSimulatedCrash
+    from repro_torch.store import SimulatedCrash
+
+    p = Pair(store="tiered", flush="flush-on-evict")
+    p.append(_table(0, 80))
+    p.append(_table(80, 80), commit=False)
+    p.append(_table(160, 80), commit=False)
+    for w, exc in ((p.want, RSimulatedCrash), (p.got, SimulatedCrash)):
+        w.flush_policy.fail_after = 0
+        with pytest.raises(exc):
+            w.commit()
+        w.flush_policy.fail_after = None
+    p.check_io()
+    assert p.both(lambda w: w.simulate_crash())[0] > 0
+    assert p.got.version == 1 and p.got.n_rows == 80
+    p.check_reads()
+    p.check_io()
+
+
+@pytest.mark.parametrize("store", ["tiered", "hot", "tiered-auto"])
+def test_tiered_writer_device_and_numpy_routes_agree(store):
+    """The arrival-order check: the device route (plain kernels on the CPU)
+    leaves the tier trace — readahead fills, hits, evictions, flushes — as
+    the numpy route leaves it, on takes and readahead scans."""
+    small = lambda cls, d: cls.cached(d, cache_bytes=32 * 4096)  # noqa: E731
+    for spec in (store, small):
+        dev, host = Pair(store=spec, decode="device"), Pair(store=spec, decode="numpy")
+        for p in (dev, host):
+            for lo in range(0, 400, 100):
+                p.append(_table(lo, 100))
+        rows = messy_rows(400, 120, np.random.default_rng(9))
+        for col in COLUMNS:
+            for p in (dev, host):
+                assert_same_array(p.want.scan(col, io_chunk=4096),
+                                  p.got.scan(col, io_chunk=4096))
+            assert_same_writer_io(dev.got, host.got)
+            for p in (dev, host):
+                assert_same_array(p.want.take(col, rows), p.got.take(col, rows))
+            assert_same_writer_io(dev.got, host.got)
+        dev.check_io()
+        host.check_io()
 
 
 def test_writer_defaults_to_cuda_and_raises_without_it(monkeypatch):

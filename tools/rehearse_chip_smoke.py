@@ -11,12 +11,16 @@ a run on the card:
   device resolution returns the CPU, so the device routes run the kernels'
   plain versions;
 * the CUDA-only measurement is stubbed: ``torch.cuda.Event`` reads the host
-  clock, ``torch.cuda.CUDAGraph`` / ``torch.cuda.graph`` capture nothing and
-  replay nothing, ``synchronize`` returns at once, the build phase builds
-  nothing and ``nvidia-smi`` answers with a placeholder line;
-* the ``ops.launch_*`` launchers are no-ops, and each kernel wrapper counts
-  one launch per CPU call (on the card only CUDA launches count);
-* the dataset, the search, the sweeps and the L2 flush are shrunk.
+  clock, ``torch.cuda.CUDAGraph`` / ``torch.cuda.graph`` run the captured
+  code once and replay nothing, streams are one host stream,
+  ``synchronize`` returns at once, the build phase builds nothing and
+  ``nvidia-smi`` answers with a placeholder line;
+* the ``ops.launch_*`` launchers are no-ops, except the gather's, which
+  writes its plain version's result into the output (``gather_streams``
+  checks outputs written by the launcher); each kernel wrapper counts one
+  launch per CPU call (on the card only CUDA launches count);
+* the dataset, the search, the gather's streams, the tiered takes, the
+  sweeps and the L2 flush are shrunk.
 
 Every number it prints is a CPU number under the script's device names, so
 none of them is a measurement.  It exits with the script's code.
@@ -24,6 +28,7 @@ none of them is a measurement.  It exits with the script's code.
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import sys
 import time
@@ -36,7 +41,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.dataset import writer as writer_module  # noqa: E402
-from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 # (text in chip_smoke.py, its stand-in here)
 SHRINK = (
@@ -52,6 +57,12 @@ SHRINK = (
     ("calls: int = 1000", "calls: int = 3"),
     ("ref.ivf_hazard_cases(rng)", "ref.ivf_hazard_cases(rng, n=600, dim=8)"),
     ("ref.gather_cases(rng)", "ref.gather_cases(rng, n_rows=40)"),
+    ("GATHER_ROWS, GATHER_STRIDE = 16429, 1536", "GATHER_ROWS, GATHER_STRIDE = 64, 1536"),
+    ("GATHER_STREAMS, GATHER_ROUNDS, GRAPH_REPLAYS = 65, 3, 20",
+     "GATHER_STREAMS, GATHER_ROUNDS, GRAPH_REPLAYS = 3, 1, 2"),
+    ("TIERED_TAKES = (1024, 16384)", "TIERED_TAKES = (64, 256)"),
+    ("CRASH_ROWS = 4096", "CRASH_ROWS = 64"),
+    ("TIERED_SCAN_CHUNK = 64 << 10", "TIERED_SCAN_CHUNK = 256"),
 )
 
 
@@ -74,8 +85,16 @@ class _Graph:
         pass
 
 
+class _Stream:
+    def __init__(self, *_, **__):
+        pass
+
+    def wait_stream(self, other):
+        pass
+
+
 class _Capture:
-    def __init__(self, graph):
+    def __init__(self, graph, **_):
         pass
 
     def __enter__(self):
@@ -89,6 +108,11 @@ def _stub_cuda() -> None:
     torch.cuda.Event = _Event
     torch.cuda.CUDAGraph = _Graph
     torch.cuda.graph = _Capture
+    torch.cuda.Stream = _Stream
+    torch.cuda.current_stream = lambda *a: _Stream()
+    torch.cuda.stream = lambda s: contextlib.nullcontext()
+    torch.cuda.get_device_properties = lambda *a: types.SimpleNamespace(
+        multi_processor_count=132)
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.is_available = lambda: True
     torch.cuda.get_device_name = lambda *a: "CPU rehearsal"
@@ -110,6 +134,8 @@ def _stub_cuda() -> None:
             return out
 
         setattr(ops, wrapper, counted)
+    ops.launch_fullzip_gather = lambda zipped, rows, out: out.copy_(
+        ref.fullzip_gather_ref(zipped, rows))
     real_run = subprocess.run
 
     def run(cmd, *a, **k):
