@@ -51,11 +51,35 @@ Phases, one JSON object per line on stdout:
    ms, the kernels' and copies' ms, ``store_ms`` (host time in the store's
    batch-close accounting: coalescing, per-block classification,
    readahead, flush policy) and the modelled IO ms;
-7. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
+7. the serving path (``serve``): the JAX package's serve and chaos benches
+   (``benchmarks/run.py`` ``serve_bench``, ``chaos_bench``) at full size
+   over the same four files.  ``DatasetWriter`` on a tiered store whose NVMe
+   cache holds half of ``emb`` (768 MiB; write-back, queue depth 32, a
+   ``Tracer``) serves 1,500 open-loop requests of 32 Zipf-skewed rows
+   (s = 1.05, Poisson at 200 requests per virtual second, seed 3) of
+   ``emb`` for two tenants, ``premium`` (share 1, weight 4, priority 1) and
+   ``standard`` (share 2, weight 1), through ``serve.workload.drive``, while
+   an ``ingest`` tenant appends a 65,536-row fragment every 187 requests and
+   commits every second append.  A numpy-route twin without a tracer serves
+   the same stream: the interleaved and serial completions, tier stats, IO,
+   write trace, modelled time and every take's values must be identical,
+   and each take must equal the source rows.  The captured window is then
+   re-priced with a metrics plane and an SLO monitor (completions
+   bit-identical), by the bare event loop (equal to the healthy run), and
+   under the chaos bench's scenarios with its gates: transient NVMe errors,
+   an NVMe blackout with and without failover, a correlated NVMe+S3
+   brownout (held to conservation only: at this load S3 is saturated and
+   the reference's retry deadlines fail requests, see ``serve_chaos``), and
+   the shed drill.  It prints per-tenant virtual-clock
+   percentiles, the NVMe hit rate, each scenario's counters, the host wall
+   time per request on both routes with the kernels' and copies' share, and
+   the trace's event counts (exported to ``build/serve_trace.json``); no
+   fallback may be counted, in ``ops.fallbacks`` or in the tracer;
+8. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
    ``kernel_bench`` size), unpacked on the card and checked against the
    packed values;
-8. each kernel at the largest input each path gave it (``take``, ``search``
-   and ``bitunpack``; ``ivf_topk`` per search step: the centroid ``probe``
+9. each kernel at the largest input each path gave it (``take``, ``search``,
+   ``tiered``, ``serve`` and ``bitunpack``; ``ivf_topk`` per search step: the centroid ``probe``
    and the ``candidates`` of each batch size), one ``kernels`` entry each:
    ``ms``, the mean of 20 back-to-back launches by CUDA events, host launch
    path included; ``graph_ms``, the same 20 launches captured in one CUDA
@@ -69,7 +93,7 @@ Phases, one JSON object per line on stdout:
    is larger); and one more ``bitunpack`` row at 2**24 values of 11 bits
    (``"step": "2**24"``, no launches on any path: it shows whether the
    kernel reaches the bandwidth regime);
-9. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+10. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Between the sweep and the dataset, ``gather_streams`` holds the gather's
 per-launch work counter to its contract: the take shape's gather (16,429
@@ -107,8 +131,14 @@ from repro_torch.dataset import (DatasetReader, DatasetWriter, IvfIndex,  # noqa
                                  write_fragments)
 from repro_torch.dataset import ivf as ivf_module  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.serve import Retriever  # noqa: E402
-from repro_torch.store import IOScheduler  # noqa: E402
+from repro_torch.core.io_sim import (NVME, S3, Blackout, CorrelatedFault,  # noqa: E402
+                                     Degradation, TransientErrors)
+from repro_torch.obs import (BurnWindow, MetricsPlane, Shedder, SLObjective,  # noqa: E402
+                             SLOMonitor, Tracer)
+from repro_torch.serve import (FaultScenario, Retriever, TenantSpec,  # noqa: E402
+                               ZipfWorkload, drive, run_scenario, tenant_summary)
+from repro_torch.store import (DrainRecord, EventLoop, IOScheduler, QoS,  # noqa: E402
+                               RetryPolicy, TieredStore, build_job)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (NVIDIA data sheet)
@@ -138,6 +168,18 @@ CRASH_ROWS = 4096
 # sequential stream inside each fragment (the default window, 8 MB, reads a
 # fragment's id column at once)
 TIERED_SCAN_CHUNK = 64 << 10
+# the serving path: the JAX package's serve bench at full size (1,500
+# requests of 32 rows at 200 per virtual second, queue depth 32) over the
+# main dataset's emb column; the NVMe cache holds half of emb (the bench's
+# rule: the Zipf head goes NVMe-warm, the tail keeps paying S3), and each
+# append is a quarter fragment (the bench's rows_per // 4)
+SERVE_REQUESTS, SERVE_RATE, SERVE_ROWS, SERVE_QD = 1500, 200.0, 32, 32
+SERVE_CACHE_BYTES = ROWS * 384 * 4 // 2
+SERVE_APPEND_ROWS = ROWS // FRAGMENTS // 4
+SERVE_TRACE = ROOT / "build" / "serve_trace.json"
+# the chaos bench's shed drill: synthetic 64-op drains, one premium and two
+# standard arrivals per 300 us slot
+SHED_SLOTS = 300
 RTOL = 1e-6
 KERNEL_REPLACES = {
     "miniblock_decode": "src/repro/kernels/miniblock_decode.py:107",
@@ -1082,6 +1124,238 @@ def tiered_writer(tw, table, files, rng):
     tw.close(dev)
 
 
+class ServeRoute:
+    """The writer a serving run drives, as ``drive`` sees it (its scheduler,
+    ``take`` and ``append``): each take is timed on the host clock, ending in
+    a synchronise, and its rows and values are kept for the twin check."""
+
+    def __init__(self, writer):
+        self.writer = writer
+        self.scheduler = writer.scheduler
+        self.takes, self.wall_ms = [], []
+
+    def take(self, column, rows):
+        s = time.perf_counter()
+        out = self.writer.take(column, rows)
+        torch.cuda.synchronize()
+        self.wall_ms.append((time.perf_counter() - s) * 1e3)
+        self.takes.append((rows, out))
+        return out
+
+    def append(self, table, commit=True):
+        return self.writer.append(table, commit=commit)
+
+
+def serve_run(files, decode, tracer, reqs, wl, seed, probe):
+    """One route of the serving path: the writer's ingest, then ``drive``
+    over the request stream with the ingest tenant's appends (tables from
+    ``seed``, the same on both routes).  Returns the writer, its route, the
+    interleaved and serial results, the window and the record to print."""
+    s = time.perf_counter()
+    w = DatasetWriter(files, store=lambda d: TieredStore.cached(d, cache_bytes=SERVE_CACHE_BYTES),
+                      flush="write-back", opts=WriteOptions("lance", decode="device"),
+                      queue_depth=SERVE_QD, decode=decode, tracer=tracer)
+    ingest_s = time.perf_counter() - s
+    route = ServeRoute(w)
+    arng = np.random.default_rng(seed)
+    probe.collect()
+    s = time.perf_counter()
+    inter, serial, win = drive(route, "emb", reqs, qos=wl.qos(),
+                               append_table=lambda: make_table(SERVE_APPEND_ROWS, arng),
+                               append_every=max(SERVE_REQUESTS // 8, 1), commit_every=2)
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - s
+    times = probe.collect()
+    take_ms = sum(route.wall_ms)
+    kernel_ms = sum(probe.kernel_ms(times).values())
+    copy_ms = times.get("to_device", 0.0) + times.get("to_host", 0.0)
+    rec = {"phase": "serve", "route": "device" if decode is None else decode,
+           "requests": len(route.takes), "versions": w.version, "ingest_s": ingest_s,
+           "drive_s": drive_s, "jobs": len(win.jobs),
+           "request_wall_ms": {"p50": float(np.percentile(route.wall_ms, 50)),
+                               "p99": float(np.percentile(route.wall_ms, 99)),
+                               "total": take_ms},
+           "kernel_ms": kernel_ms, "copy_ms": copy_ms,
+           "kernel_share": kernel_ms / take_ms, "copy_share": copy_ms / take_ms}
+    return w, route, inter, serial, win, rec
+
+
+def ms_summary(res, names):
+    """Per-tenant virtual-clock latency percentiles in ms, and the
+    makespan."""
+    out = dict(tenant_summary(res, names))
+    out["makespan_ms"] = res.makespan * 1e3
+    return out
+
+
+def serve_path_phase(table, files, seed, probe):
+    """The serving path (see the module docstring, item 7)."""
+    tenants = [TenantSpec("premium", share=1.0, weight=4.0, priority=1,
+                          rows_per_request=SERVE_ROWS),
+               TenantSpec("standard", share=2.0, weight=1.0, rows_per_request=SERVE_ROWS)]
+    names = [t.name for t in tenants] + ["ingest"]
+    wl = ZipfWorkload(n_rows=ROWS, tenants=tenants, n_requests=SERVE_REQUESTS, zipf_s=1.05,
+                      arrival_rate=SERVE_RATE, seed=3)
+    reqs = wl.generate()
+    tracer = Tracer()
+    ops.reset_counts()  # the serving path starts here
+    dev = serve_run(files, None, tracer, reqs, wl, seed + 13, probe)
+    launches = dict(ops.launches)  # and ends here
+    fallbacks = dict(ops.fallbacks)
+    emit(dev[-1])
+    host = serve_run(files, "numpy", None, reqs, wl, seed + 13, probe)
+    emit(host[-1])
+    w, route, inter, serial, win, _ = dev
+    w_np, route_np, inter_np, serial_np, _, _ = host
+
+    check(w.device.type == "cuda" and w.tracer is tracer,
+          "serve: the writer is not the traced device route")
+    check(inter.completions == inter_np.completions, "serve: interleaved completions differ")
+    check(serial.completions == serial_np.completions, "serve: serial completions differ")
+    check(twin_state(w) == twin_state(w_np), "serve: tier stats, IO, write trace or modelled "
+          "time differ between the routes")
+    check(len(route.takes) == len(route_np.takes) == SERVE_REQUESTS, "serve: requests lost")
+    for (rows, got), (rows_np, want) in zip(route.takes, route_np.takes):
+        check(np.array_equal(rows, rows_np) and same_buffers(want, got),
+              "serve: a take differs between the routes")
+        check(same_values(table["emb"].take(rows), got), "serve: a take != source rows")
+    check(inter.makespan <= serial.makespan * (1 + 1e-12), "serve: interleaving lost to serial")
+    emit({"phase": "serve_latency", "requests": SERVE_REQUESTS, "rows_per_request": SERVE_ROWS,
+          "virtual_ms": {"interleaved": ms_summary(inter, names),
+                         "serial": ms_summary(serial, names)},
+          "nvme_hit_rate": w.tier_stats()[0].hit_rate, "tiers": tiers_of(w),
+          "modelled_io_ms": w.modelled_time() * 1e3})
+    del host, w_np, route_np
+
+    # the captured window, re-priced with a plane and an SLO monitor
+    # (objectives from the healthy run's own maxima, so it never breaches)
+    for spec in tenants:
+        spec.slo_ms = round(tenant_summary(inter, [spec.name])[spec.name]["max"] * 1.1, 6)
+        spec.slo_target = 0.99 if spec.name == "premium" else 0.95
+    plane = MetricsPlane(window=0.25, n_windows=8, rel_err=0.01)
+    slo = SLOMonitor(wl.slo_objectives(),
+                     windows=(BurnWindow(long_s=0.5, short_s=0.0625, burn_threshold=2.0),),
+                     registry=plane.registry, plane=plane)
+    sampled = win.run("interleaved", plane=plane, slo=slo)
+    check(sampled.completions == inter.completions,
+          "serve: plane/SLO sampling changed the completions")
+    check(not slo.alerts, "serve: the healthy run breached its own objectives")
+    devices = w.scheduler._devices()
+    bare = EventLoop(devices, queue_depth=SERVE_QD, qos=wl.qos()).run(win.jobs)
+    check(bare.completions == inter.completions,
+          "serve: the bare event loop differs from the healthy run")
+    chaos = serve_chaos(win, wl, devices, w.store.backing.name, inter.makespan)
+
+    counts = {}
+    for e in tracer.events:
+        cat = e.get("cat", "meta")
+        counts[cat] = counts.get(cat, 0) + 1
+    tracer_fallbacks = tracer.metrics.counter_values("decode.fallback")
+    SERVE_TRACE.parent.mkdir(exist_ok=True)
+    n_events = tracer.export(str(SERVE_TRACE))
+    emit({"phase": "serve_trace", "events": n_events, "by_category": counts,
+          "bytes": SERVE_TRACE.stat().st_size, "path": str(SERVE_TRACE.relative_to(ROOT)),
+          "plane_series": len(plane.series)})
+    emit({"phase": "serve_path", "checked": "interleaved and serial completions, tier stats, "
+          "IO, write trace, modelled time and values identical between the traced device "
+          "route and the untraced numpy twin; takes equal the source; plane-on completions "
+          "bit-identical; bare loop equals the healthy run; chaos gates",
+          "chaos": chaos, "launches": launches, "fallbacks": fallbacks,
+          "tracer_fallbacks": tracer_fallbacks})
+    check(launches["fullzip_gather"] > 0, "fullzip_gather never launched on the serving path")
+    check(not fallbacks and not tracer_fallbacks,
+          f"serve: fell back to the host: {fallbacks} {tracer_fallbacks}")
+    return launches
+
+
+def serve_chaos(win, wl, devices, s3_name, makespan):
+    """The chaos bench's scenarios re-price the captured window, each held
+    to the bench's gate; the shed drill runs on its synthetic drains."""
+    M = makespan
+    nvme_name = next(d.name for d in devices if d.name.startswith("nvme"))
+    out = {}
+    res = run_scenario(win, FaultScenario("transient_nvme", faults=(
+        (nvme_name, TransientErrors(0.25 * M, 0.75 * M, error_prob=0.05, seed=11)),)),
+        qos=wl.qos())
+    check(res.availability("premium") >= 0.999,
+          f"chaos transient: premium availability {res.availability('premium')} < 99.9%")
+    check(res.counters.get(f"retry.{nvme_name}", 0) > 0, "chaos transient: no retries")
+    out["transient_nvme"] = chaos_cell(res)
+    black = Blackout(0.3 * M)
+    on = run_scenario(win, FaultScenario("blackout_failover", faults=((nvme_name, black),)),
+                      qos=wl.qos())
+    off = run_scenario(win, FaultScenario("blackout_no_failover", faults=((nvme_name, black),),
+                                          retry=RetryPolicy(failover=False)), qos=wl.qos())
+    check(not on.errors and on.counters.get(f"failover.{nvme_name}", 0) > 0,
+          "chaos blackout: failover did not absorb the NVMe blackout")
+    check(len(off.errors) > 0, "chaos blackout: the no-failover ablation failed nothing")
+    out["blackout_failover"], out["blackout_no_failover"] = chaos_cell(on), chaos_cell(off)
+    cf = CorrelatedFault(TransientErrors(0.25 * M, 0.6 * M, error_prob=0.03, seed=5),
+                         (nvme_name, s3_name))
+    res = run_scenario(win, FaultScenario("correlated_brownout",
+                                          faults=tuple((n, cf.fault) for n in cf.devices)),
+                       qos=wl.qos())
+    # The chaos bench gates this scenario at 99.9% availability on its own,
+    # lighter traffic.  Here S3 is saturated (requests wait seconds), and a
+    # unit's retry deadline (timeout_k times its healthy service time) is
+    # stamped when it queues, so an op error on S3 after the deadline fails
+    # its request at once: the reference's semantics, not a port fault
+    # (tests/test_torch_faults.py holds both packages to the same result).
+    # What must hold at any load: each request completes exactly once, and
+    # only on the last tier, where nothing is left to fail over to.
+    check(len(res.completions) == len(win.jobs) and all(
+        c.error in (None, f"io:{s3_name}") for c in res.completions),
+        "chaos correlated: a request was lost, duplicated or failed short of S3")
+    out["correlated_brownout"] = chaos_cell(res)
+    out["shed_drill"] = shed_drill()
+    emit({"phase": "serve_chaos", **out})
+    return {k: v["counters"] for k, v in out.items()}
+
+
+def chaos_cell(res, **extra):
+    return {"makespan_ms": res.makespan * 1e3, "availability": res.availability(),
+            "availability_premium": res.availability("premium"), "failed": len(res.errors),
+            "counters": dict(sorted(res.counters.items())), **extra}
+
+
+def shed_drill():
+    """The chaos bench's shed drill: a controlled overload (one premium and
+    two standard 64-op drains per 300 us slot) through a mid-run 2x NVMe
+    slowdown.  The shedder must trip exactly once, shed only standard, keep
+    premium fully available and finish before the unshed ablation."""
+    devices = [NVME, S3]
+    jobs, seq = [], 0
+    for i in range(SHED_SLOTS):
+        for tenant in ("premium", "standard", "standard"):
+            seq += 1
+            rec = DrainRecord(f"{tenant}/{i}", 1, {0: ({0: 64}, {0: 64 * 4096})})
+            jobs.append(build_job(rec, devices, tenant=tenant, submit=i * 3e-4, seq=seq))
+    qos = QoS(priority={"premium": 1})
+    healthy = EventLoop(devices, queue_depth=64, qos=qos).run(jobs)
+    M = healthy.makespan
+    objective = SLObjective(healthy.percentiles("premium")["p99"] * 5.0, target=0.99)
+    window = BurnWindow(long_s=M / 8, short_s=M / 64, burn_threshold=2.0)
+    faulted = [NVME.with_fault(Degradation(0.2 * M, 0.8 * M, latency_factor=2.0,
+                                           throughput_factor=1.0)), S3]
+
+    def drill(shed_on):
+        mon = SLOMonitor({"premium": objective}, windows=(window,))
+        sh = Shedder(mon, protect=("premium",), shed=("standard",), on_burn=4.0,
+                     off_burn=1.0, hold_s=M / 4) if shed_on else None
+        res = EventLoop(faulted, queue_depth=64, qos=qos, retry=RetryPolicy(),
+                        slo=mon, shedder=sh).run(jobs)
+        return res, sh
+
+    on, sh = drill(True)
+    off, _ = drill(False)
+    check(sh.trips == 1, f"shed drill: the shedder tripped {sh.trips} times")
+    check(on.counters.get("shed.standard", 0) > 0 and "shed.premium" not in on.counters,
+          "shed drill: shed the wrong tenant")
+    check(on.availability("premium") == 1.0, "shed drill: premium lost requests")
+    check(on.makespan < off.makespan, "shed drill: shedding did not shorten the run")
+    return chaos_cell(on, trips=sh.trips, unshed_makespan_ms=off.makespan * 1e3)
+
+
 def bitunpack_path_phase(rng):
     """The bitunpack kernel's own path: no reader calls it; the JAX package
     drives it at 2**20 values of 11 bits (kernel_bench)."""
@@ -1170,7 +1444,7 @@ def kernel_case(name, a, kw):
         "operations": n_vals, "ops_per_s": INT_OPS_PER_S}
 
 
-PATH_ORDER = {"take": 0, "search": 1, "tiered": 2, "bitunpack": 3}
+PATH_ORDER = {"take": 0, "search": 1, "tiered": 2, "serve": 3, "bitunpack": 4}
 
 
 def measure_phase(probe, smallest, launches, sweep, rng):
@@ -1261,6 +1535,8 @@ def main() -> int:
     launches["search"] = timed("search", search_path_phase, table, files, rng, probe)
     probe.path = "tiered"
     launches["tiered"] = timed("tiered", tiered_path_phase, table, files, rng, probe)
+    probe.path = "serve"
+    launches["serve"] = timed("serve", serve_path_phase, table, files, args.seed, probe)
     del files
     probe.path = "bitunpack"
     launches["bitunpack"] = bitunpack_path_phase(rng)

@@ -264,7 +264,7 @@ class FileReader:
 
     def __init__(self, file_bytes_or_disk, store=None, queue_depth: int = 256,
                  readahead="auto", decode: Optional[str] = None, scheduler=None,
-                 base: int = 0, device=None):
+                 base: int = 0, device=None, tracer=None):
         from ..kernels.ops import resolve_device
         from ..store import IOScheduler, make_store
 
@@ -278,6 +278,9 @@ class FileReader:
         if scheduler is not None:
             if store is not None:
                 raise ValueError("pass store or scheduler, not both")
+            if tracer is not None:
+                raise ValueError(
+                    "the tracer is fixed by the injected scheduler")
             if queue_depth != 256 or readahead != "auto":
                 raise ValueError(
                     "queue_depth/readahead are fixed by the injected "
@@ -293,7 +296,8 @@ class FileReader:
                 raise ValueError("base requires an injected scheduler")
             self.store = make_store(store, disk)
             self.scheduler = IOScheduler(self.store, queue_depth=queue_depth,
-                                         readahead=readahead)
+                                         readahead=readahead, tracer=tracer)
+        self.tracer = self.scheduler.tracer
         self.meta, self.footer_bytes = read_footer(disk.read, len(disk))
         self.columns = {c["name"]: c for c in self.meta["columns"]}
         if decode is None:
@@ -330,12 +334,15 @@ class FileReader:
     def take(self, name: str, rows) -> A.Array:
         col = self.columns[name]
         rows = np.asarray(rows, dtype=np.int64)
-        with self.scheduler.batch(f"take:{name}") as io:
-            # the rows are the logical requests of this drain; declared here —
-            # not in take_leaves — so a dataset-wide take counts each row once
-            io.note_requests(len(rows))
-            res = self.take_leaves(name, rows, io)
-        return unshred(res, type_from_dict(col["type"]))
+        with self.tracer.span(f"take:{name}", cat="reader", n_rows=len(rows),
+                              decode=self.decode):
+            with self.scheduler.batch(f"take:{name}") as io:
+                # the rows are the logical requests of this drain; declared
+                # here — not in take_leaves — so a dataset-wide take counts
+                # each row once
+                io.note_requests(len(rows))
+                res = self.take_leaves(name, rows, io)
+            return unshred(res, type_from_dict(col["type"]))
 
     def take_leaves(self, name: str, rows, io):
         """One take through an externally-owned batch handle.
@@ -352,8 +359,10 @@ class FileReader:
         return [r.take(rows, io) for r in readers]
 
     def scan(self, name: str, io_chunk: int = 8 << 20) -> A.Array:
-        with self.scheduler.batch(f"scan:{name}", prefetch=True) as io:
-            return self.scan_into(name, io, io_chunk=io_chunk)
+        with self.tracer.span(f"scan:{name}", cat="reader",
+                              decode=self.decode):
+            with self.scheduler.batch(f"scan:{name}", prefetch=True) as io:
+                return self.scan_into(name, io, io_chunk=io_chunk)
 
     def scan_into(self, name: str, io, io_chunk: int = 8 << 20) -> A.Array:
         """One full-column scan through an externally-owned batch handle."""

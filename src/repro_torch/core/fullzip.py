@@ -446,7 +446,9 @@ class FullZipReader(ColumnReader):
             if self.decode == "device":
                 # the rep-indexed path decodes variable-stride entries on the
                 # host frontier; the fused gather kernel needs fixed strides
-                ops.note_fallback("fullzip", "variable-stride")
+                ops.note_fallback("fullzip", "variable-stride",
+                                  getattr(io, "tracer", None),
+                                  n_rows=int(n_unique))
             R = m["R"]
             # one IOP per row covers both adjacent index entries (start & end)
             idx, _ = io.read_many(

@@ -9,11 +9,10 @@ Results come in three tiers:
 3. **Modelled** — the counted trace priced with the paper's Fig. 1 device
    characteristics (Samsung 970 EVO Plus NVMe; S3 from [4]).
 
-This is the port's copy of the healthy-device subset: the fault models
-(degradations, transient errors, blackouts, correlated faults) wait for
-ROADMAP.md, Queue 1 item 4b.  The reference's ``HBM`` device model (a TPU's
-HBM-to-VMEM DMA regime) is deliberately not carried: the port prices no
-TPU.
+Devices may carry a fault schedule (degradations, transient errors,
+blackouts, correlated faults) that only the event loop's timing overlay
+reads.  The reference's ``HBM`` device model (a TPU's HBM-to-VMEM DMA
+regime) is deliberately not carried: the port prices no TPU.
 """
 
 from __future__ import annotations
@@ -24,7 +23,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 __all__ = [
-    "Disk", "DiskView", "IOTracker", "IOStats", "DeviceModel",
+    "Disk", "DiskView", "IOTracker", "IOStats", "DeviceModel", "Degradation",
+    "TransientErrors", "Blackout", "CorrelatedFault",
     "NVME", "S3", "DRAM", "model_time", "merge_phase_extents",
     "trace_stats",
 ]
@@ -259,6 +259,124 @@ class IOTracker:
 
 
 @dataclasses.dataclass(frozen=True)
+class Degradation:
+    """A time-varying fault on a device: between ``start`` and ``end``
+    (virtual seconds) the device's round-trip latency is multiplied by
+    ``latency_factor`` and its effective bandwidth by ``throughput_factor``
+    (a throttled NVMe under thermal pressure, a saturated S3 prefix, a
+    firmware stall).
+
+    The fault plane lives strictly on the event-loop timing overlay
+    (:mod:`repro_torch.store.evloop`): the *priced* accounting —
+    ``TierStats.model_time``, ``Job.serial_time``, logical IOPS/bytes —
+    never consults the fault schedule, so every committed baseline stays
+    bit-identical whether or not a device carries faults.  That asymmetry is
+    the point: the live metrics plane has to *detect* a degradation the
+    steady-state price model cannot see."""
+
+    start: float
+    end: float = float("inf")
+    latency_factor: float = 1.0
+    throughput_factor: float = 1.0
+
+    def __post_init__(self):
+        if self.latency_factor <= 0 or self.throughput_factor <= 0:
+            raise ValueError("degradation factors must be positive")
+        if self.end < self.start:
+            raise ValueError("degradation window ends before it starts")
+
+    def active(self, t: float) -> bool:
+        return self.start <= t < self.end
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix_uniform(*keys: int) -> float:
+    """Stateless uniform draw in [0, 1) from an integer key tuple
+    (splitmix64 finalizer).  The fault plane's only randomness source: a
+    draw is a pure function of its key, so two event-loop runs over the
+    same jobs + fault schedule reproduce bit-identical failure sets —
+    nothing is consumed from a shared stream whose position could drift."""
+    x = 0x9E3779B97F4A7C15
+    for k in keys:
+        x = (x ^ (int(k) & _MASK64)) * 0xBF58476D1CE4E5B9 & _MASK64
+        x ^= x >> 27
+    x = (x * 0x94D049BB133111EB) & _MASK64
+    x ^= x >> 31
+    x = (x * 0xBF58476D1CE4E5B9) & _MASK64
+    x ^= x >> 30
+    return (x >> 11) / float(1 << 53)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransientErrors:
+    """A transient-error window: between ``start`` and ``end`` (virtual
+    seconds) each op on the device *independently* fails with probability
+    ``error_prob`` — after consuming its round trip, the way a timed-out or
+    errored NVMe command still occupied its queue slot.  Draws are pure
+    functions of ``seed`` and the op's identity (unit, slot, attempt), so a
+    run is exactly replayable and a lower ``error_prob`` fails a strict
+    subset of the ops a higher one fails (same uniform, lower threshold).
+
+    Like :class:`Degradation`, this is consulted only by the event-loop
+    timing overlay: priced accounting and the logical trace never see it.
+    """
+
+    start: float
+    end: float = float("inf")
+    error_prob: float = 0.01
+    seed: int = 0
+
+    def __post_init__(self):
+        if not 0.0 <= self.error_prob <= 1.0:
+            raise ValueError("error_prob must be in [0, 1]")
+        if self.end < self.start:
+            raise ValueError("error window ends before it starts")
+
+    def active(self, t: float) -> bool:
+        return self.start <= t < self.end
+
+
+@dataclasses.dataclass(frozen=True)
+class Blackout:
+    """A total outage: every op completing inside the window fails (a
+    pulled cable, a crashed S3 prefix, an unmounted NVMe namespace).
+    Equivalent to :class:`TransientErrors` at ``error_prob=1`` but kept as
+    its own type so schedules read as what they model."""
+
+    start: float
+    end: float = float("inf")
+
+    def __post_init__(self):
+        if self.end < self.start:
+            raise ValueError("blackout window ends before it starts")
+
+    def active(self, t: float) -> bool:
+        return self.start <= t < self.end
+
+
+@dataclasses.dataclass(frozen=True)
+class CorrelatedFault:
+    """One fault window stamped onto several tiers at once (an availability
+    zone brownout takes the NVMe cache *and* its S3 prefix down together —
+    the correlated-failure shape independent per-tier schedules cannot
+    express).  ``apply`` returns a new device list with ``fault`` appended
+    to every named device, leaving the rest untouched."""
+
+    fault: object  # Degradation | TransientErrors | Blackout
+    devices: Tuple[str, ...]
+
+    def apply(self, devices: Sequence["DeviceModel"]) -> List["DeviceModel"]:
+        unknown = set(self.devices) - {d.name for d in devices}
+        if unknown:
+            raise ValueError(f"unknown device(s) {sorted(unknown)} in "
+                             f"correlated fault")
+        return [d.with_fault(self.fault) if d.name in self.devices else d
+                for d in devices]
+
+
+@dataclasses.dataclass(frozen=True)
 class DeviceModel:
     """First-order device model from the paper's Fig. 1 measurements."""
 
@@ -267,6 +385,68 @@ class DeviceModel:
     seq_bw: float  # bytes/s sequential
     latency: float  # per-round-trip latency (seconds)
     min_read: int  # reads below this size cost the same as this size
+    # Fault-injection schedule, consulted only by the event-loop timing
+    # overlay (see Degradation/TransientErrors/Blackout).  () = healthy,
+    # the module constants below.
+    faults: Tuple[object, ...] = ()
+
+    def with_fault(self, fault) -> "DeviceModel":
+        """A copy of this device carrying one more scheduled fault
+        (:class:`Degradation`, :class:`TransientErrors` or
+        :class:`Blackout`)."""
+        return dataclasses.replace(self, faults=self.faults + (fault,))
+
+    def latency_factor_at(self, t: float) -> float:
+        """Round-trip latency multiplier at virtual time ``t`` (1.0 healthy;
+        overlapping faults compound).  Error-type faults fail ops, they do
+        not stretch them."""
+        f = 1.0
+        for d in self.faults:
+            if d.active(t):
+                f *= getattr(d, "latency_factor", 1.0)
+        return f
+
+    def bandwidth_factor_at(self, t: float) -> float:
+        """Effective-bandwidth multiplier at virtual time ``t`` (1.0
+        healthy, < 1.0 degraded; overlapping faults compound)."""
+        f = 1.0
+        for d in self.faults:
+            if d.active(t):
+                f *= getattr(d, "throughput_factor", 1.0)
+        return f
+
+    def fault_active_at(self, t: float) -> bool:
+        """Is any scheduled fault window (degradation *or* error-type)
+        open at virtual time ``t``?  Used by the store's fault-aware cache
+        admission: a block fetched while its source tier is browned out is
+        slow-path traffic, not working-set evidence, so it is not admitted.
+        Like every fault consumer this reads only the schedule — priced
+        accounting stays fault-blind (see the class docstring)."""
+        return any(d.active(t) for d in self.faults)
+
+    @property
+    def has_error_faults(self) -> bool:
+        """True if any scheduled fault can *fail* ops (vs merely slow
+        them) — the event loop only allocates retry state for such tiers."""
+        return any(isinstance(d, (TransientErrors, Blackout))
+                   for d in self.faults)
+
+    def op_fails_at(self, t: float, *keys: int) -> bool:
+        """Does the op identified by ``keys`` fail if it completes at
+        virtual time ``t``?  A pure function of (schedule, t, keys): a
+        :class:`Blackout` fails everything in its window; each active
+        :class:`TransientErrors` window contributes one independent
+        seeded draw.  Window membership is judged at op-completion time —
+        an op issued inside a window that completes after it has cleared
+        the fault."""
+        for d in self.faults:
+            if isinstance(d, Blackout) and d.active(t):
+                return True
+            if isinstance(d, TransientErrors) and d.active(t) \
+                    and d.error_prob > 0.0 \
+                    and _splitmix_uniform(d.seed, *keys) < d.error_prob:
+                return True
+        return False
 
 
 # Samsung 970 EVO Plus measured in the paper: 850K IOPS @4KiB, 3,400 MiB/s.

@@ -350,7 +350,8 @@ class MiniBlockReader(ColumnReader):
         raws = [data[doffs[i]: doffs[i + 1]] for i in range(len(needed))]
 
         # decode each chunk exactly once (numpy or batched on the device)
-        decoded = self._decode_chunks(needed, raws)
+        decoded = self._decode_chunks(needed, raws,
+                                      tracer=getattr(io, "tracer", None))
         lens = np.array([self.meta["chunks"][c]["n_entries"] for c in needed],
                         dtype=np.int64)
         reps = [d[0] for d in decoded]
@@ -389,15 +390,16 @@ class MiniBlockReader(ColumnReader):
         return reorder_leaf_rows(dec, inv)  # fan out to request order
 
     # ------------------------------------------------------------------
-    def _decode_chunks(self, chunk_ids, raws) -> List[tuple]:
+    def _decode_chunks(self, chunk_ids, raws, tracer=None) -> List[tuple]:
         """Decode chunks ``chunk_ids`` (raw payloads in ``raws``) exactly
         once each.  Under ``decode='device'``, integer chunks (bit-packed or
         FoR byte-packed values; flat, nested or fixed-size-list; any
         rep/def level width) are batch-decoded by one ``miniblock_decode``
         launch; the rest fall back to the numpy path per chunk, each
-        fallback counted under its reason (``ops.fallbacks``)."""
+        fallback counted under its reason (``ops.fallbacks``, and ``tracer``,
+        the IO path's, via the batch handle)."""
         if self.decode == "device":
-            routed = self._decode_chunks_device(chunk_ids, raws)
+            routed = self._decode_chunks_device(chunk_ids, raws, tracer)
             if routed is not None:
                 return routed
         return [self._decode_chunk(c, raw) for c, raw in zip(chunk_ids, raws)]
@@ -466,10 +468,12 @@ class MiniBlockReader(ColumnReader):
             return "ref-overflow"
         return f"opaque-codec:{codec}"
 
-    def _decode_chunks_device(self, chunk_ids, raws) -> Optional[List[tuple]]:
+    def _decode_chunks_device(self, chunk_ids, raws,
+                              tracer=None) -> Optional[List[tuple]]:
         col_reason = self._pallas_ineligible_reason()
         if col_reason is not None:
-            ops.note_fallback("miniblock", col_reason)
+            ops.note_fallback("miniblock", col_reason, tracer,
+                              n_chunks=len(chunk_ids))
             return None
         lt = self.proto.leaf_type
         fsl = isinstance(lt, T.FixedSizeList)
@@ -482,10 +486,13 @@ class MiniBlockReader(ColumnReader):
         # metadata-only eligibility check first: chunks are parsed at most
         # once, and an all-ineligible batch costs no parse work at all
         kp = [self._chunk_kernel_params(cm["bufmeta"][vbi]) for cm in metas]
-        reasons = {self._chunk_fallback_reason(cm["bufmeta"][vbi])
-                   for cm, p in zip(metas, kp) if p is None}
+        reasons: Dict[str, int] = {}
+        for cm, p in zip(metas, kp):
+            if p is None:
+                r = self._chunk_fallback_reason(cm["bufmeta"][vbi])
+                reasons[r] = reasons.get(r, 0) + 1
         for r in sorted(reasons):  # one count per reason per batch
-            ops.note_fallback("miniblock", r)
+            ops.note_fallback("miniblock", r, tracer, n_chunks=reasons[r])
         if not any(p is not None for p in kp):
             return None
         sel = [i for i, p in enumerate(kp) if p is not None]
@@ -555,7 +562,8 @@ class MiniBlockReader(ColumnReader):
             raw[offs[ci]: offs[ci] + self.meta["chunks"][ci]["words"] * 8]
             for ci in range(n_chunks)
         ]
-        decoded = self._decode_chunks(np.arange(n_chunks), raws)
+        decoded = self._decode_chunks(np.arange(n_chunks), raws,
+                                      tracer=getattr(io, "tracer", None))
         reps = [d[0] for d in decoded]
         dfs = [d[1] for d in decoded]
         vals = [d[2] for d in decoded]

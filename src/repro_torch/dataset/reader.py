@@ -46,17 +46,19 @@ class DatasetReader:
     once over the dataset's global disk, so "tiered" gives the whole dataset
     a single NVMe budget.  ``decode`` and ``device`` are
     passed to every fragment's :class:`~repro_torch.core.file.FileReader`:
-    the device routes run on CUDA unless ``device="cpu"``.
+    the device routes run on CUDA unless ``device="cpu"``.  ``tracer`` is
+    the IO path's (:class:`~repro_torch.obs.Tracer`; None traces nothing).
     """
 
     def __init__(self, files: Sequence[bytes], store=None,
                  queue_depth: int = 256, readahead="auto",
-                 decode: Optional[str] = None, device=None):
+                 decode: Optional[str] = None, device=None, tracer=None):
         from ..store import IOScheduler, make_store
 
         manifest, disk = build_dataset_disk(files)
         scheduler = IOScheduler(make_store(store, disk),
-                                queue_depth=queue_depth, readahead=readahead)
+                                queue_depth=queue_depth, readahead=readahead,
+                                tracer=tracer)
         self._bind(manifest, disk, scheduler, decode=decode, device=device)
 
     @classmethod
@@ -81,6 +83,7 @@ class DatasetReader:
         self.disk = disk
         self.store = scheduler.store
         self.scheduler = scheduler
+        self.tracer = scheduler.tracer
         self.fragments: List[FileReader] = readers if readers is not None else [
             FileReader(DiskView(self.disk, f.base, f.nbytes),
                        scheduler=self.scheduler, base=f.base,
@@ -127,26 +130,30 @@ class DatasetReader:
         inv = np.empty(len(perm), dtype=np.int64)
         inv[perm] = np.arange(len(perm), dtype=np.int64)
         frag_ids = np.unique(fi)
-        with self.scheduler.batch(f"take:{name}") as io:
-            # the global rows are the logical requests of this drain
-            io.note_requests(len(rows))
-            parts = [
-                self.fragments[f].take_leaves(name, local[fi == f], io)
-                for f in frag_ids
+        with self.tracer.span(f"dataset.take:{name}", cat="reader",
+                              n_rows=len(rows), n_fragments=len(frag_ids)):
+            with self.scheduler.batch(f"take:{name}") as io:
+                # the global rows are the logical requests of this drain
+                io.note_requests(len(rows))
+                parts = [
+                    self.fragments[f].take_leaves(name, local[fi == f], io)
+                    for f in frag_ids
+                ]
+            n_leaves = len(parts[0])
+            leaves = [
+                reorder_leaf_rows(concat_leaves([p[k] for p in parts]), inv)
+                for k in range(n_leaves)
             ]
-        n_leaves = len(parts[0])
-        leaves = [
-            reorder_leaf_rows(concat_leaves([p[k] for p in parts]), inv)
-            for k in range(n_leaves)
-        ]
-        return unshred(leaves, type_from_dict(col["type"]))
+            return unshred(leaves, type_from_dict(col["type"]))
 
     def scan(self, name: str, io_chunk: int = 8 << 20) -> A.Array:
         """Full-column scan across all fragments, in global row order."""
-        with self.scheduler.batch(f"scan:{name}", prefetch=True) as io:
-            parts = [fr.scan_into(name, io, io_chunk=io_chunk)
-                     for fr in self.fragments]
-        return A.concat(parts)
+        with self.tracer.span(f"dataset.scan:{name}", cat="reader",
+                              n_fragments=len(self.fragments)):
+            with self.scheduler.batch(f"scan:{name}", prefetch=True) as io:
+                parts = [fr.scan_into(name, io, io_chunk=io_chunk)
+                         for fr in self.fragments]
+            return A.concat(parts)
 
     # -- accounting ----------------------------------------------------------
     def io_stats(self, coalesce_gap: int = 0):

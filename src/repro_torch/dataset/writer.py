@@ -30,9 +30,6 @@ durable on the backing device.
   bytes are torn off the media, uncommitted fragments vanish, and the live
   state rewinds to the last committed version — per-tier ``lost_bytes``
   records what the write-back latency trade put at risk.
-
-This is the port's copy without the reference's tracer spans (item 5 of
-ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -70,13 +67,16 @@ class DatasetWriter:
     fragment bytes (ingested through the write path and committed as v1).
     ``decode`` and ``device`` are passed to every fragment's
     :class:`~repro_torch.core.file.FileReader`: the device routes run on
-    CUDA unless ``device="cpu"``.
+    CUDA unless ``device="cpu"``.  ``tracer`` is the IO path's
+    (:class:`~repro_torch.obs.Tracer`; None traces nothing): appends,
+    commits and compactions open spans on it, and a simulated crash is an
+    instant.
     """
 
     def __init__(self, files: Sequence[bytes] = (), store="tiered",
                  flush="write-back", opts: Optional[WriteOptions] = None,
                  queue_depth: int = 256, readahead="auto",
-                 decode: Optional[str] = None, device=None):
+                 decode: Optional[str] = None, device=None, tracer=None):
         self.device = resolve_device(device)
         self.opts = opts or WriteOptions()
         self.disk = Disk(np.zeros(0, np.uint8))
@@ -85,7 +85,8 @@ class DatasetWriter:
             flush = FlushPolicy(flush)
         self.store.set_flush_policy(flush)
         self.scheduler = IOScheduler(self.store, queue_depth=queue_depth,
-                                     readahead=readahead)
+                                     readahead=readahead, tracer=tracer)
+        self.tracer = self.scheduler.tracer
         self._decode = decode
         self._columns: Optional[List[Dict]] = None
         self.fragments: List[Fragment] = []   # live (to-be-committed) list
@@ -116,6 +117,7 @@ class DatasetWriter:
         """
         self = cls.__new__(cls)
         self.device = parent.device
+        self.tracer = parent.tracer
         self.opts = opts or parent.opts
         self.disk = parent.disk
         self.store = parent.store
@@ -169,8 +171,10 @@ class DatasetWriter:
         self.disk.grow(base + len(fb) - len(self.disk))
         fid = self._next_id
         self._next_id += 1
-        with self.scheduler.write_batch(f"{label}:{fid}") as wb:
-            wb.write(base, fb, phase=0)
+        with self.tracer.span(f"{label}:{fid}", cat="writer",
+                              nbytes=len(fb)):
+            with self.scheduler.write_batch(f"{label}:{fid}") as wb:
+                wb.write(base, fb, phase=0)
         row_start = self.fragments[-1].row_stop if self.fragments else 0
         frag = Fragment(id=fid, base=base, nbytes=len(fb),
                         n_rows=cols[0]["n_rows"] if cols else 0,
@@ -194,19 +198,25 @@ class DatasetWriter:
         (1) every dirty block is flushed to the backing device; (2) only
         then is the new manifest version created.  An interruption anywhere
         leaves the previous version's bytes fully durable and the new
-        version nonexistent — never a torn committed manifest.  Returns the committed manifest (the latest one when nothing new was
-        staged, or ``None`` for a still-empty dataset)."""
-        self.scheduler.flush_barrier()  # (1) durability barrier
-        if not self.fragments:
-            return None  # empty dataset: nothing to commit
-        if self.versions and not self._pending \
-                and self.versions[-1].fragments == self.fragments:
-            return self.versions[-1]  # nothing new: no empty version
-        m = Manifest(self.fragments, self._columns,
-                     version=len(self.versions) + 1)  # (2) commit point
-        self.versions.append(m)
-        self._pending = []
-        return m
+        version nonexistent — never a torn committed manifest.  Returns the
+        committed manifest (the latest one when nothing new was staged, or
+        ``None`` for a still-empty dataset)."""
+        with self.tracer.span("commit", cat="writer",
+                              n_pending=len(self._pending)) as sp:
+            # (1) durability barrier (may SimulatedCrash); routed through
+            # the scheduler so the flush drains hit the serving plane
+            self.scheduler.flush_barrier()
+            if not self.fragments:
+                return None  # empty dataset: nothing to commit
+            if self.versions and not self._pending \
+                    and self.versions[-1].fragments == self.fragments:
+                return self.versions[-1]  # nothing new: no empty version
+            m = Manifest(self.fragments, self._columns,
+                         version=len(self.versions) + 1)  # (2) commit point
+            self.versions.append(m)
+            self._pending = []
+            sp.set(version=m.version)
+            return m
 
     def flush(self) -> int:
         """Manual durability barrier without a commit (staged fragments stay
@@ -264,7 +274,8 @@ class DatasetWriter:
             self.commit()
         if not self.versions:
             raise ValueError("nothing committed yet — append() first")
-        return self._compact(max_rows)
+        with self.tracer.span("compact", cat="writer", max_rows=max_rows):
+            return self._compact(max_rows)
 
     def _compact(self, max_rows: int) -> Manifest:
         groups: List[List[Fragment]] = []
@@ -328,6 +339,9 @@ class DatasetWriter:
         commit fence, so a shared boundary block can only lose its
         uncommitted tail.  Returns the number of bytes torn."""
         lost_extents = self.store.discard_dirty()
+        self.tracer.instant(
+            "simulated_crash", cat="writer",
+            lost_extents=len(lost_extents), n_pending=len(self._pending))
         pend = [(f.base, f.base + f.nbytes) for f in self._pending]
         torn = 0
         for lo, hi in lost_extents:

@@ -94,11 +94,16 @@ def reset_counts() -> None:
     fallbacks.clear()
 
 
-def note_fallback(encoding: str, reason: str) -> None:
+def note_fallback(encoding: str, reason: str, tracer=None, **args) -> None:
     """Count one decode-route fallback (``decode="device"`` routed a decode
-    to the host), keyed ``decode.fallback.<encoding>.<reason>``."""
+    to the host), keyed ``decode.fallback.<encoding>.<reason>``.  The
+    process-wide count is kept whether or not a tracer is attached, so no
+    host fallback hides the kernel; ``tracer`` (the IO path's, or None)
+    gets the same count and a ``pallas_fallback`` event with ``args``."""
     key = f"decode.fallback.{encoding}.{reason}"
     fallbacks[key] = fallbacks.get(key, 0) + 1
+    if tracer is not None:
+        tracer.fallback(encoding, reason, **args)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -482,7 +487,8 @@ def launch_ivf_topk(queries, cands, ids, mask, out_d, out_i) -> None:
     launches["ivf_topk"] += 1
 
 
-def ivf_topk(queries, cands, ids, k: int, mask=None, *, device=None):
+def ivf_topk(queries, cands, ids, k: int, mask=None, *, device=None,
+             tracer=None):
     """Batched squared-L2 distance + deterministic top-k over one shared
     candidate matrix (the IVF search hot loop).
 
@@ -497,8 +503,9 @@ def ivf_topk(queries, cands, ids, k: int, mask=None, *, device=None):
     at least one candidate) run on ``device``: the CUDA kernel there, its
     plain version on the CPU.  Otherwise the plain version runs on the host
     and the reason is counted under ``decode.fallback.ivf.<reason>``
-    (``non-float32``, ``no-candidates``, ``>1024-k``, ``>31-bit-ids``), as
-    the reference reports its own (whose kernel stops at k = 128).  Wide ids are selected
+    (``non-float32``, ``no-candidates``, ``>1024-k``, ``>31-bit-ids``) in
+    ``fallbacks`` and in ``tracer``'s registry, as the reference reports its
+    own (whose kernel stops at k = 128).  Wide ids are selected
     over their positions in id order (position tie-break == id tie-break)
     and mapped back.
     """
@@ -529,7 +536,8 @@ def ivf_topk(queries, cands, ids, k: int, mask=None, *, device=None):
     else:
         ids_run = ids_arr.astype(np.int32)
     if reason is not None:
-        note_fallback("ivf", reason)
+        note_fallback("ivf", reason, tracer, n_queries=qn, n_candidates=n,
+                      k=k)
         dev = torch.device("cpu")  # the plain version, on the host
     # float32 throughout, as the reference computes under JAX's 32-bit types
     args = [to_device(q2.astype(np.float32, copy=False), dev),

@@ -16,6 +16,7 @@ import torch
 
 from ..core.file import FileReader
 from ..kernels import ops
+from ..obs import NULL_TRACER
 
 __all__ = ["BatchedEngine", "Retriever", "SearchResult"]
 
@@ -123,38 +124,46 @@ class Retriever:
         nprobe = min(max(1, int(nprobe)), p)
         dev = torch.device("cpu") if self.decode == "numpy" \
             else self.reader.device
-        # 1. probe: nearest centroids per query (centroid rows come through
-        # the shared store)
-        cent = self.index.centroids(index_version)
-        _, probes = ops.ivf_topk(q, cent, np.arange(p, dtype=np.int32),
-                                 nprobe, device=dev)
-        probes = np.asarray(probes, np.int64)           # (Q, nprobe)
-        # 2. one batched posting fetch for the union of probed parts
-        parts = np.unique(probes)
-        posts = self.index.postings(parts, index_version)
-        cand_ids = np.concatenate(posts) if posts else np.zeros(0, np.int64)
-        # per-query eligibility: candidate row -> owning partition, eligible
-        # iff that partition is in the query's probe set
-        probed = np.zeros((nq, p), bool)
-        probed[np.repeat(np.arange(nq), nprobe), probes.reshape(-1)] = True
-        part_of = np.repeat(parts, [len(pl) for pl in posts])
-        mask = probed[:, part_of]                       # (Q, N)
-        # 3. one batched take of the candidate vectors, then the kernel
-        cand = self.reader.take(self.column, cand_ids)
-        d, w = ops.ivf_topk(q, np.asarray(cand.values, np.float32), cand_ids,
-                            k, mask=mask, device=dev)
-        d = np.asarray(d, np.float32)
-        w = np.asarray(w, np.int64)
-        w[w == ops.IVF_ID_SENTINEL] = -1
-        # 4. one batched take of the deduplicated winner rows — the response
-        # payload, served (and priced) like any data read
-        winners = np.unique(w[w >= 0])
-        values = None
-        if fetch and winners.size:
-            values = self.reader.take(self.column, winners)
-        return SearchResult(ids=w, distances=d, probes=probes,
-                            winner_rows=winners, values=values,
-                            n_candidates=int(cand_ids.size))
+        tracer = getattr(self.reader, "tracer", NULL_TRACER)
+        # the host route reports no kernel fallback to the tracer, as the
+        # reference's jnp oracle route does not
+        kernel_tracer = None if self.decode == "numpy" else tracer
+        with tracer.span("search", cat="serve", n_queries=nq, k=k,
+                         nprobe=nprobe):
+            # 1. probe: nearest centroids per query (centroid rows come
+            # through the shared store)
+            cent = self.index.centroids(index_version)
+            _, probes = ops.ivf_topk(q, cent, np.arange(p, dtype=np.int32),
+                                     nprobe, device=dev, tracer=kernel_tracer)
+            probes = np.asarray(probes, np.int64)           # (Q, nprobe)
+            # 2. one batched posting fetch for the union of probed parts
+            parts = np.unique(probes)
+            posts = self.index.postings(parts, index_version)
+            cand_ids = np.concatenate(posts) if posts else \
+                np.zeros(0, np.int64)
+            # per-query eligibility: candidate row -> owning partition,
+            # eligible iff that partition is in the query's probe set
+            probed = np.zeros((nq, p), bool)
+            probed[np.repeat(np.arange(nq), nprobe), probes.reshape(-1)] = True
+            part_of = np.repeat(parts, [len(pl) for pl in posts])
+            mask = probed[:, part_of]                       # (Q, N)
+            # 3. one batched take of the candidate vectors, then the kernel
+            cand = self.reader.take(self.column, cand_ids)
+            d, w = ops.ivf_topk(q, np.asarray(cand.values, np.float32),
+                                cand_ids, k, mask=mask, device=dev,
+                                tracer=kernel_tracer)
+            d = np.asarray(d, np.float32)
+            w = np.asarray(w, np.int64)
+            w[w == ops.IVF_ID_SENTINEL] = -1
+            # 4. one batched take of the deduplicated winner rows — the
+            # response payload, served (and priced) like any data read
+            winners = np.unique(w[w >= 0])
+            values = None
+            if fetch and winners.size:
+                values = self.reader.take(self.column, winners)
+            return SearchResult(ids=w, distances=d, probes=probes,
+                                winner_rows=winners, values=values,
+                                n_candidates=int(cand_ids.size))
 
     def tier_stats(self):
         """Per-tier dispatched-IO stats since the last fetch."""

@@ -120,8 +120,7 @@ class BlockCache:
         return self._active
 
     def gauges(self) -> "Dict[str, float]":
-        """Instantaneous gauge snapshot (for the live metrics plane, which
-        waits for ROADMAP.md, Queue 1 item 5).
+        """Instantaneous gauge snapshot for the live metrics plane.
 
         ``hit_rate`` is lifetime hits / lookups (0.0 before any lookup —
         a gauge needs a number, and the windowed view comes from sampling

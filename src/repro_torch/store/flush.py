@@ -31,11 +31,6 @@ discard_dirty`` simulates the crash (drops dirty residency, counts
 unflushed media bytes).  Tests inject ``fail_after`` to interrupt a flush
 after N dispatched extents and prove any prefix of the flush+commit sequence
 leaves every committed manifest version readable.
-
-This is the port's copy without the reference's tracer spans and instants
-(a span per flush drain, an instant per flush-on-evict write-back), which
-wait for ROADMAP.md, Queue 1 item 5 (``obs``).  The accounting is the
-reference's, drain for drain.
 """
 
 from __future__ import annotations
@@ -126,6 +121,7 @@ class FlushPolicy:
         store.backing_stats.add_write_op(store.sector, phase=0, flush=True)
         self._born.pop(block_id, None)
         self.n_flush_events += 1
+        store.tracer.instant("flush_on_evict", cat="flush", block=block_id)
 
     def on_batch_end(self, store) -> None:
         """Scheduler tick (one per closed read/write batch): age-out dirty
@@ -158,7 +154,8 @@ class FlushPolicy:
         runs become one sector-aligned backing write op each, dispatched into
         the store's open drain and closed as one queue drain.  ``reason``
         names the trigger (``deadline``/``watermark``/``barrier``) — it
-        labels the drain record, so flush stalls are attributable.  Returns the number of blocks made durable.
+        labels the drain record and the trace span, so flush stalls are
+        attributable.  Returns the number of blocks made durable.
         ``fail_after`` (fault injection) crashes the flush after that many
         dispatched extents."""
         blocks = sorted(b for b in blocks)
@@ -176,19 +173,21 @@ class FlushPolicy:
             prev = b
         runs.append((run_lo, prev + 1))
         done = 0
-        for i, (b0, b1) in enumerate(runs):
-            if self.fail_after is not None and i >= self.fail_after:
-                store.end_batch(label)
-                raise SimulatedCrash(
-                    f"flush interrupted after {i} of {len(runs)} extents")
-            store.backing_stats.add_write_op((b1 - b0) * sector, phase=0,
-                                             flush=True)
-            for bid in range(b0, b1):
-                if cache is not None:
-                    cache.clean(bid)
-                self._born.pop(bid, None)
-                done += 1
-        store.end_batch(label)  # a flush is its own queue drain
+        with store.tracer.span(label, cat="flush", n_blocks=len(blocks),
+                               n_runs=len(runs)):
+            for i, (b0, b1) in enumerate(runs):
+                if self.fail_after is not None and i >= self.fail_after:
+                    store.end_batch(label)
+                    raise SimulatedCrash(
+                        f"flush interrupted after {i} of {len(runs)} extents")
+                store.backing_stats.add_write_op((b1 - b0) * sector, phase=0,
+                                                 flush=True)
+                for bid in range(b0, b1):
+                    if cache is not None:
+                        cache.clean(bid)
+                    self._born.pop(bid, None)
+                    done += 1
+            store.end_batch(label)  # a flush is its own queue drain
         self.n_flush_events += 1
         return done
 

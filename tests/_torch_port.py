@@ -147,3 +147,100 @@ def assert_same_writer_io(want, got):
     assert_same_tiers(want, got)
     assert want.dirty_bytes == got.dirty_bytes
     assert want.modelled_time() == got.modelled_time()
+
+
+# ---------------------------------------------------------------------------
+# lockstep over whole packages (the serving-plane tests: obs, evloop, faults)
+# ---------------------------------------------------------------------------
+
+_LOCKSTEP_MODULES = ("core.io_sim", "obs", "store", "store.stats",
+                     "serve.workload", "dataset")
+# the entry points that take the port's ``device`` (CPU in the tests)
+_DEVICE_ENTRY_POINTS = ("FileReader", "DatasetReader", "DatasetWriter",
+                        "Retriever")
+
+
+def package(root: str, **port_kw):
+    """A flat namespace of one package's public names (io_sim, obs, store,
+    the serve workload, dataset, the file API, ``A``/``T``), the entry points
+    bound to ``port_kw``, and ``route``: the device decode route's name in
+    this package (``"pallas"`` in the JAX package, ``"device"`` in the
+    port)."""
+    import functools
+    import importlib
+    import types
+
+    ns = types.SimpleNamespace(name=root)
+    for mod_name in _LOCKSTEP_MODULES:
+        mod = importlib.import_module(f"{root}.{mod_name}")
+        for k in getattr(mod, "__all__", None) or dir(mod):
+            v = getattr(mod, k)
+            if not k.startswith("__") and not isinstance(v, types.ModuleType):
+                setattr(ns, k, v)
+    file = importlib.import_module(f"{root}.core.file")
+    ns.FileReader, ns.WriteOptions = file.FileReader, file.WriteOptions
+    ns.write_table = file.write_table
+    ns.Retriever = importlib.import_module(f"{root}.serve.engine").Retriever
+    ns.A = importlib.import_module(f"{root}.core.arrays")
+    ns.T = importlib.import_module(f"{root}.core.types")
+    for k in _DEVICE_ENTRY_POINTS:
+        setattr(ns, k, functools.partial(getattr(ns, k), **port_kw))
+    ns.route = "device" if port_kw else "pallas"
+    return ns
+
+
+def snap(x):
+    """A comparable form of what a case logs: dataclasses as (name, fields),
+    numpy arrays and scalars as Python values, NaN as a string, recursively
+    through lists, tuples and dicts."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__,
+                [snap(getattr(x, f.name)) for f in dataclasses.fields(x)])
+    if isinstance(x, dict):
+        return {snap(k): snap(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [snap(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return snap(x.tolist())
+    if isinstance(x, np.generic):
+        return snap(x.item())
+    if isinstance(x, float) and x != x:
+        return "nan"
+    return x
+
+
+_ROUTE_NAMES = {"device": "pallas"}
+
+
+def trace_shape(events):
+    """Trace events without their wall-clock fields (``ts``, ``dur``): name,
+    category, phase, track and args, with the port's decode-route name
+    mapped to the reference's."""
+    out = []
+    for e in events:
+        args = dict(e.get("args", {}))
+        if "decode" in args:
+            args["decode"] = _ROUTE_NAMES.get(args["decode"], args["decode"])
+        out.append((e["name"], e.get("cat"), e["ph"], e["tid"], snap(args)))
+    return out
+
+
+def lockstep_packages(ref, port, case, *args):
+    """Run ``case(m, log, *args)`` on the reference namespace and on the
+    port's; each run's assertions must hold, and the logs must be identical
+    (tolerance 0)."""
+    logs = []
+    for m in (ref, port):
+        log = []
+        case(m, log.append, *args)
+        logs.append(snap(log))
+    assert len(logs[0]) > 0
+    assert logs[0] == logs[1]
+
+
+def job_shape(job):
+    """An event-loop job's serving metadata and its (phase, tier) units."""
+    return (job.label, job.tenant, job.weight, job.request, job.n_requests,
+            job.submit, job.seq, job.think,
+            [(u.phase, u.tier, u.dev.name, u.ops, u.nbytes, u.pipe)
+             for u in job.units])

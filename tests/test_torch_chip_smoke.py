@@ -35,13 +35,15 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert {("miniblock_decode", "take", None), ("miniblock_decode", "search", None),
             ("miniblock_decode", "tiered", None), ("fullzip_gather", "tiered", None),
             ("fullzip_gather", "take", None), ("fullzip_gather", "search", None),
+            ("fullzip_gather", "serve", None),
             ("ivf_topk", "search", "probe"), ("bitunpack", "bitunpack", None),
             ("bitunpack", "bitunpack", "2**24")} <= entries
     assert {s for n, _, s in entries if n == "ivf_topk"} == {
         "probe", "candidates q=1", "candidates q=4", "candidates q=8"}
     phases = [json.loads(ln).get("phase") for ln in lines if ln.startswith("{")]
     for phase in ("device", "build", "kernels", "gather_streams", "take_path", "search_path",
-                  "tiered", "tiered_path", "bitunpack_path", "done"):
+                  "tiered", "tiered_path", "serve", "serve_latency", "serve_chaos",
+                  "serve_trace", "serve_path", "bitunpack_path", "done"):
         assert phase in phases
     records = [json.loads(ln) for ln in lines if ln.startswith('{"phase"')]
     streams = next(r for r in records if r["phase"] == "gather_streams")
@@ -55,3 +57,25 @@ def test_chip_smoke_rehearses_on_the_cpu():
     tiered = next(r for r in records if r["phase"] == "tiered_path")
     assert tiered["launches"]["miniblock_decode"] > 0 and tiered["launches"]["fullzip_gather"] > 0
     assert tiered["fallbacks"] == {}
+    serve = {r["route"]: r for r in records if r["phase"] == "serve"}
+    assert set(serve) == {"device", "numpy"}
+    for r in serve.values():
+        assert r["requests"] == 96 and r["request_wall_ms"]["p50"] > 0
+    latency = next(r for r in records if r["phase"] == "serve_latency")
+    for mode in ("interleaved", "serial"):
+        assert {"premium", "standard", "ingest", "all"} <= set(latency["virtual_ms"][mode])
+    assert 0 < latency["nvme_hit_rate"] <= 1
+    chaos = next(r for r in records if r["phase"] == "serve_chaos")
+    assert chaos["blackout_failover"]["failed"] == 0
+    assert chaos["blackout_no_failover"]["failed"] > 0
+    assert chaos["shed_drill"]["trips"] == 1
+    assert chaos["shed_drill"]["availability_premium"] == 1.0
+    trace = next(r for r in records if r["phase"] == "serve_trace")
+    assert trace["events"] > 0 and trace["bytes"] > 0
+    assert {"reader", "scheduler", "writer", "flush"} <= set(trace["by_category"])
+    path = next(r for r in records if r["phase"] == "serve_path")
+    assert path["launches"]["fullzip_gather"] > 0
+    assert path["fallbacks"] == {} and path["tracer_fallbacks"] == {}
+    row = next(k for k in kernels if (k["name"], k["path"]) == ("fullzip_gather", "serve"))
+    assert row["launches"] == path["launches"]["fullzip_gather"]
+    assert row["shape"]["n_take"] == 32

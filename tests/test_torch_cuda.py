@@ -341,3 +341,44 @@ def test_cuda_ivf_topk_threshold_hazards(cuda_device, index):
         assert (w[1] == ops.IVF_ID_SENTINEL).all() and torch.isinf(d[1]).all()
         assert (w[2, :5] != ops.IVF_ID_SENTINEL).all()
         assert (w[2, 5:] == ops.IVF_ID_SENTINEL).all()
+
+
+def test_cuda_serve_smoke_matches_numpy_route(cuda_device):
+    """The serve bench's smoke run (``tests/_torch_serve.py``) on the traced
+    device route against the untraced numpy route: identical completions,
+    tier stats, IO, write trace, modelled time and values; the gather
+    launched; no fallback in ``ops.fallbacks`` or in the tracer."""
+    import dataclasses
+    import types
+
+    import repro_torch.core.arrays as A
+    import repro_torch.core.types as T
+    from repro_torch.core.file import WriteOptions, write_table
+    from repro_torch.dataset import DatasetWriter
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import TenantSpec, ZipfWorkload, drive
+    from repro_torch.store import TieredStore
+
+    from _torch_serve import serve_smoke
+
+    m = types.SimpleNamespace(A=A, T=T, WriteOptions=WriteOptions, write_table=write_table,
+                              DatasetWriter=DatasetWriter, TieredStore=TieredStore,
+                              TenantSpec=TenantSpec, ZipfWorkload=ZipfWorkload, drive=drive)
+    tracer = Tracer()
+    ops.reset_counts()
+    dw, drec, dinter, dserial, _, source = serve_smoke(m, decode="device", device=cuda_device,
+                                                       tracer=tracer)
+    assert ops.launches["fullzip_gather"] > 0
+    assert ops.fallbacks == {}
+    assert tracer.metrics.counter_values("decode.fallback") == {} and tracer.events
+    hw, hrec, hinter, hserial, _, _ = serve_smoke(m, decode="numpy", device="cpu")
+    assert dinter.completions == hinter.completions
+    assert dserial.completions == hserial.completions
+    for state in (lambda w: [dataclasses.astuple(t) for t in w.tier_stats()],
+                  lambda w: dataclasses.astuple(w.io_stats()),
+                  lambda w: dataclasses.astuple(w.write_stats()), lambda w: w.modelled_time()):
+        assert state(dw) == state(hw)
+    for (rows, got), (hrows, want) in zip(drec.takes, hrec.takes):
+        assert np.array_equal(rows, hrows)
+        assert np.array_equal(got.values, want.values)
+        assert np.array_equal(got.values, source[rows])

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.core.file import FileReader, WriteOptions, write_table
 from repro_torch.core import arrays as A
-from repro_torch.dataset import DatasetReader, write_fragments
+from repro_torch.dataset import DatasetReader, DatasetWriter, write_fragments
 from repro_torch.kernels import ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -43,8 +43,9 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, repro_torch.core, repro_torch.store, repro_torch.dataset, "
-            "repro_torch.serve, repro_torch.kernels.ops, repro_torch.kernels.build, "
+    code = ("import sys, repro_torch.core, repro_torch.obs, repro_torch.store, "
+            "repro_torch.dataset, repro_torch.serve, repro_torch.kernels.ops, "
+            "repro_torch.kernels.build, "
             "repro_torch.kernels.ref; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -63,7 +64,7 @@ def test_readers_default_to_cuda_and_raise_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fb = _file()
     for make in (lambda: FileReader(fb), lambda: FileReader(fb, device="cuda"),
-                 lambda: FileReader(fb, decode="numpy"),
+                 lambda: FileReader(fb, decode="numpy"), lambda: DatasetWriter(),
                  lambda: DatasetReader(write_fragments(
                      {"c": A.PrimitiveArray.build(np.arange(10), nullable=False)}, 2))):
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -20,7 +20,9 @@ a run on the card:
   checks outputs written by the launcher); each kernel wrapper counts one
   launch per CPU call (on the card only CUDA launches count);
 * the dataset, the search, the gather's streams, the tiered takes, the
-  sweeps and the L2 flush are shrunk.
+  sweeps and the L2 flush are shrunk, and the serving path runs the serve
+  bench's smoke size (96 requests; its cache, half of ``emb``, and its
+  appends, a quarter fragment, shrink with the dataset).
 
 Every number it prints is a CPU number under the script's device names, so
 none of them is a measurement.  It exits with the script's code.
@@ -63,6 +65,8 @@ SHRINK = (
     ("TIERED_TAKES = (1024, 16384)", "TIERED_TAKES = (64, 256)"),
     ("CRASH_ROWS = 4096", "CRASH_ROWS = 64"),
     ("TIERED_SCAN_CHUNK = 64 << 10", "TIERED_SCAN_CHUNK = 256"),
+    ("SERVE_REQUESTS, SERVE_RATE, SERVE_ROWS, SERVE_QD = 1500, 200.0, 32, 32",
+     "SERVE_REQUESTS, SERVE_RATE, SERVE_ROWS, SERVE_QD = 96, 200.0, 32, 32"),
 )
 
 
