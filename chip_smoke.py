@@ -75,11 +75,43 @@ Phases, one JSON object per line on stdout:
    time per request on both routes with the kernels' and copies' share, and
    the trace's event counts (exported to ``build/serve_trace.json``); no
    fallback may be counted, in ``ops.fallbacks`` or in the tracer;
-8. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
+8. the paper path (``paper``): the JAX package's random-access figures
+   (``benchmarks/run.py`` fig10, fig11, fig18) on the port.  Each of the
+   eight §6.1 types from ``synth.paper_type(seed=1)`` at about 64 MiB of
+   values is written as ``lance`` (device route), ``parquet`` (8 KiB pages)
+   and ``arrow``, the scalar also as Parquet with 64 KiB, 256 KiB and 1 MiB
+   pages and with 1 MiB pages and a dictionary (the "default" of the 60x
+   row); a 5-field int64 struct packed and shredded (Fig 18); int64 scalars
+   in 0-3 list levels as ``arrow``, ``lance-fullzip`` and ``lance``
+   (Fig 11).  Each takes 256 random rows 3 times after ``reset_io``; every
+   take must equal the source rows and every other encoding, and Lance runs
+   on the device route and a numpy-route twin with identical ``io_stats()``
+   and ``modelled_time()``.  It prints iops/row, read amplification,
+   phases, search-cache bytes, modelled rows/s and host wall ms, and the
+   device route's kernels, copies, launches and host fallbacks per type
+   (var-width leaves and values over 31 bits decode on the host, as in the
+   JAX package);
+9. the loader path (``loader``): smollm-360m's training input.  A token
+   file of 16,384 documents (``synth.token_corpus``, vocab 49,152, about 42M
+   tokens) is written for the device route and for the numpy route; a
+   ``TokenLoader`` over each yields 64 batches of 8 x 2,049 int32 tokens.
+   The batches and ``batch_for_step`` must be equal; it prints each route's
+   scan wall, tokens/s and the kernels' and copies' share;
+10. the kv path (``kv``): one layer's K pool of smollm-360m in a
+   ``PagedKVCache`` (5 KV heads x 64 bf16 features: 81,920-byte block rows;
+   16,384 blocks, 1.25 GiB).  256 requests with prompts of 512-8,192 tokens
+   are prefilled, then 32 decode steps append one token to every request
+   and gather every request's KV through ``fullzip_gather``; after step 16
+   half of the requests are released and replaced.  Every gather must equal
+   a mirror of the appended values rounded to bf16 on the host, and the
+   plain gather of the same store (tolerance 0); it prints gathers, bytes,
+   wall and the kernel's share;
+11. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
    ``kernel_bench`` size), unpacked on the card and checked against the
    packed values;
-9. each kernel at the largest input each path gave it (``take``, ``search``,
-   ``tiered``, ``serve`` and ``bitunpack``; ``ivf_topk`` per search step: the centroid ``probe``
+12. each kernel at the largest input each path gave it (``take``, ``search``,
+   ``tiered``, ``serve``, ``paper``, ``loader``, ``kv`` and ``bitunpack``;
+   ``ivf_topk`` per search step: the centroid ``probe``
    and the ``candidates`` of each batch size), one ``kernels`` entry each:
    ``ms``, the mean of 20 back-to-back launches by CUDA events, host launch
    path included; ``graph_ms``, the same 20 launches captured in one CUDA
@@ -93,7 +125,7 @@ Phases, one JSON object per line on stdout:
    is larger); and one more ``bitunpack`` row at 2**24 values of 11 bits
    (``"step": "2**24"``, no launches on any path: it shows whether the
    kernel reaches the bandwidth regime);
-10. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+13. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Between the sweep and the dataset, ``gather_streams`` holds the gather's
 per-launch work counter to its contract: the take shape's gather (16,429
@@ -125,8 +157,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import arrays as A  # noqa: E402
 from repro_torch.core import types as T  # noqa: E402
-from repro_torch.core.file import WriteOptions  # noqa: E402
+from repro_torch.core.file import FileReader, WriteOptions, write_table  # noqa: E402
 from repro_torch.core.compression import bitpack  # noqa: E402
+from repro_torch.data import TokenLoader, synth  # noqa: E402
 from repro_torch.dataset import (DatasetReader, DatasetWriter, IvfIndex,  # noqa: E402
                                  write_fragments)
 from repro_torch.dataset import ivf as ivf_module  # noqa: E402
@@ -135,8 +168,9 @@ from repro_torch.core.io_sim import (NVME, S3, Blackout, CorrelatedFault,  # noq
                                      Degradation, TransientErrors)
 from repro_torch.obs import (BurnWindow, MetricsPlane, Shedder, SLObjective,  # noqa: E402
                              SLOMonitor, Tracer)
-from repro_torch.serve import (FaultScenario, Retriever, TenantSpec,  # noqa: E402
-                               ZipfWorkload, drive, run_scenario, tenant_summary)
+from repro_torch.serve import (BLOCK, FaultScenario, PagedKVCache, Retriever,  # noqa: E402
+                               TenantSpec, ZipfWorkload, drive, run_scenario,
+                               tenant_summary)
 from repro_torch.store import (DrainRecord, EventLoop, IOScheduler, QoS,  # noqa: E402
                                RetryPolicy, TieredStore, build_job)
 
@@ -180,6 +214,32 @@ SERVE_TRACE = ROOT / "build" / "serve_trace.json"
 # the chaos bench's shed drill: synthetic 64-op drains, one premium and two
 # standard arrivals per 300 us slot
 SHED_SLOTS = 300
+# the paper path (the JAX package's fig10/fig11/fig18, benchmarks/run.py, on
+# the port): each §6.1 type at about 64 MiB of values (synth's sizes: 8 B,
+# 16 B, 40 B, 80 B, 3 KiB, 15 KiB, 20 KiB and 100 KiB a row), taken TAKE_N
+# rows at a time (the paper's take op), TAKE_REPEATS times after reset_io
+PAPER_ROWS = {"scalar": 8_388_608, "string": 4_194_304, "scalar-list": 1_677_722,
+              "string-list": 838_861, "vector": 21_845, "vector-list": 4_369,
+              "image": 3_277, "image-list": 655}
+TAKE_N, TAKE_REPEATS = 256, 3
+# the scalar's Parquet page-size sweep past the 8 KiB of every type; the last
+# size with a dictionary is the "default" of the paper's 60x row
+PAPER_PAGES = (64 << 10, 256 << 10, 1 << 20)
+# Fig 18: a struct of int64 fields, packed and shredded; Fig 11: int64
+# scalars wrapped in 0-3 list levels
+STRUCT_ROWS, STRUCT_FIELDS = 1 << 20, 5
+NEST_ROWS, NEST_DEPTHS = 1 << 20, (0, 1, 2, 3)
+# the loader path: smollm-360m's training input (configs: vocab 49,152;
+# seq_len 2,048, batch 8) over a token file of LOADER_DOCS documents
+LOADER_DOCS, LOADER_VOCAB, LOADER_SEQ, LOADER_BATCH = 16384, 49152, 2048, 8
+LOADER_BATCHES, LOADER_STEP = 64, 100
+# the kv path: one layer's K pool of smollm-360m (5 KV heads of 64: 81,920-B
+# bf16 block rows), 16,384 blocks (1.25 GiB); KV_REQUESTS prompts of
+# KV_PROMPT tokens, KV_STEPS one-token decode steps gathering every request,
+# half the requests replaced after step KV_REPLACE_AT
+KV_FEATURES, KV_BLOCKS = 5 * 64, 16384
+KV_REQUESTS, KV_PROMPT = 256, (512, 8192)
+KV_STEPS, KV_REPLACE_AT = 32, 16
 RTOL = 1e-6
 KERNEL_REPLACES = {
     "miniblock_decode": "src/repro/kernels/miniblock_decode.py:107",
@@ -638,17 +698,27 @@ def same_buffers(a, b) -> bool:
         return False
     if hasattr(a, "child"):
         return np.array_equal(a.offsets, b.offsets) and same_buffers(a.child, b.child)
+    if hasattr(a, "data"):
+        return np.array_equal(a.offsets, b.offsets) and np.array_equal(a.data, b.data)
+    if hasattr(a, "children"):
+        return [n for n, _ in a.children] == [n for n, _ in b.children] and all(
+            same_buffers(x, y) for (_, x), (_, y) in zip(a.children, b.children))
     return a.values.dtype == b.values.dtype and np.array_equal(a.values, b.values)
 
 
 def same_values(src, got) -> bool:
     """``got`` holds ``src``'s valid values (the source keeps arbitrary
     bytes under its nulls, decoded arrays do not)."""
-    if not np.array_equal(src.validity, got.validity):
+    if type(src) is not type(got) or not np.array_equal(src.validity, got.validity):
         return False
     v = src.validity
     if hasattr(src, "child"):
         return np.array_equal(src.offsets, got.offsets) and same_values(src.child, got.child)
+    if hasattr(src, "data"):  # var-width: nulls are empty in both
+        return np.array_equal(src.offsets, got.offsets) and np.array_equal(src.data, got.data)
+    if hasattr(src, "children"):
+        return [n for n, _ in src.children] == [n for n, _ in got.children] and all(
+            same_values(a, b) for (_, a), (_, b) in zip(src.children, got.children))
     return np.array_equal(src.values[v], got.values[v])
 
 
@@ -1356,6 +1426,317 @@ def shed_drill():
     return chaos_cell(on, trips=sh.trips, unshed_makespan_ms=off.makespan * 1e3)
 
 
+def paper_encodings(tname):
+    """The encodings each type is written in (label, options): Lance on the
+    device route (its numpy twin reads the same file), Parquet with 8 KiB
+    pages and Arrow; the scalar also with larger pages and the 1 MiB
+    dictionary "default"."""
+    encs = [("lance", WriteOptions("lance", decode="device")),
+            ("parquet-8k", WriteOptions("parquet", page_bytes=8 << 10)),
+            ("arrow", WriteOptions("arrow"))]
+    if tname == "scalar":
+        encs += [(f"parquet-{p >> 10}k", WriteOptions("parquet", page_bytes=p))
+                 for p in PAPER_PAGES]
+        encs.append(("parquet-1024k-dict",
+                     WriteOptions("parquet", page_bytes=1 << 20, dict_encode=True)))
+    return encs
+
+
+def take_bench(reader, column, rows):
+    """benchmarks/run.py's take op: a warm-up of 4 rows, ``reset_io``, then
+    TAKE_REPEATS takes of ``rows``, each timed on the host clock ending in a
+    synchronise.  Returns the last result and the mean wall ms."""
+    reader.take(column, rows[:4])
+    reader.reset_io()
+    walls, out = [], None
+    for _ in range(TAKE_REPEATS):
+        s = time.perf_counter()
+        out = reader.take(column, rows)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - s) * 1e3)
+    return out, float(np.mean(walls))
+
+
+def take_record(reader, **fields):
+    """iops/row, read amplification, dependent phases, search-cache bytes and
+    modelled rows/s (NVMe, the flat store) of TAKE_REPEATS takes."""
+    st = reader.io_stats()
+    taken = TAKE_N * TAKE_REPEATS
+    return {**fields, "iops_per_row": st.n_iops / taken,
+            "read_amplification": st.read_amplification, "phases": st.max_phase,
+            "search_cache_bytes": reader.search_cache_bytes(),
+            "modelled_rows_per_s": taken / reader.modelled_time()}
+
+
+def paper_take(label, fb, column, rows, source, probe, **fields):
+    """One encoding's take bench.  A Lance file runs on the device route and
+    on its numpy-route twin: equal results, identical io_stats and
+    modelled_time; the device route's kernels, copies, launches and host
+    fallbacks go into the record.  Every result must equal the source rows."""
+    tag = f"paper {fields.get('type', '')} {label}"
+    if not label.startswith("lance"):
+        reader = FileReader(fb)
+        got, wall = take_bench(reader, column, rows)
+        check(same_values(source.take(rows), got), f"{tag}: take != source")
+        return got, take_record(reader, encoding=label, **fields, wall_ms=wall)
+    dev, host = FileReader(fb), FileReader(fb, decode="numpy")
+    check(dev.decode == "device" and dev.device.type == "cuda", f"{tag}: not the device route")
+    n0, f0 = dict(ops.launches), dict(ops.fallbacks)
+    probe.collect()
+    got, dwall = take_bench(dev, column, rows)
+    times = probe.collect()
+    launched = {n: ops.launches[n] - n0[n] for n in ops.launches}
+    fell = {k: v - f0.get(k, 0) for k, v in ops.fallbacks.items() if v != f0.get(k, 0)}
+    want, hwall = take_bench(host, column, rows)
+    check(same_buffers(want, got), f"{tag}: device != numpy route")
+    check(same_values(source.take(rows), got), f"{tag}: take != source")
+    check(io_of(dev) == io_of(host), f"{tag}: IO accounting differs between the routes")
+    rec = take_record(dev, encoding=label, **fields, wall_ms=dwall, numpy_wall_ms=hwall,
+                      kernel_ms=probe.kernel_ms(times),
+                      copy_ms=times.get("to_device", 0.0) + times.get("to_host", 0.0),
+                      launches=launched, fallbacks=fell)
+    return got, rec
+
+
+def paper_path_phase(seed, probe):
+    """The paper's random-access comparison on the port (see the module
+    docstring, item 8)."""
+    rng = np.random.default_rng(seed + 17)
+    ops.reset_counts()  # the paper path starts here
+    rates = {}
+    for tname, n in PAPER_ROWS.items():
+        s = time.perf_counter()
+        arr = synth.paper_type(tname, n, seed=1)
+        gen_s = time.perf_counter() - s
+        rows = rng.choice(n, TAKE_N, replace=False)
+        first = None
+        for label, opts in paper_encodings(tname):
+            s = time.perf_counter()
+            fb = write_table({"c": arr}, opts)
+            write_s = time.perf_counter() - s
+            got, rec = paper_take(label, fb, "c", rows, arr, probe, type=tname, n_rows=n,
+                                  file_bytes=len(fb), gen_s=gen_s, write_s=write_s)
+            if first is None:
+                first = got
+            check(same_values(first, got), f"paper {tname} {label}: differs from lance")
+            rates[(tname, label)] = rec["modelled_rows_per_s"]
+            emit({"phase": "paper", **rec})
+            del fb
+        del arr, first
+    tuned, default = rates[("scalar", "parquet-8k")], rates[("scalar", "parquet-1024k-dict")]
+    emit({"phase": "paper_default_vs_tuned", "tuned": "parquet-8k", "default": "parquet-1024k-dict",
+          "tuned_rows_per_s": tuned, "default_rows_per_s": default, "speedup": tuned / default})
+    paper_struct(rng, probe)
+    paper_nesting(rng, probe)
+    launches = dict(ops.launches)  # the paper path ends here
+    fallbacks = dict(ops.fallbacks)
+    emit({"phase": "paper_path", "checked": "every take exact vs the source rows and every "
+          "encoding; Lance's device route equal to its numpy twin with identical io_stats "
+          "and modelled_time", "launches": launches, "fallbacks": fallbacks})
+    for name in ("miniblock_decode", "fullzip_gather"):
+        check(launches[name] > 0, f"{name} never launched on the paper path")
+    return launches
+
+
+def paper_struct(rng, probe):
+    """Fig 18: a STRUCT_FIELDS-field struct, packed (every field of a row in
+    one IOP) and shredded (one leaf per field); a packed single-field scan
+    reads the whole stride."""
+    n = STRUCT_ROWS
+    arr = A.StructArray.build([(f"f{i}", A.PrimitiveArray.build(
+        rng.integers(0, 1 << 40, n).astype(np.int64), nullable=False))
+        for i in range(STRUCT_FIELDS)], nullable=False)
+    rows = rng.choice(n, TAKE_N, replace=False)
+    packed = write_table({"s": arr}, WriteOptions("lance", packed_columns=("s",)))
+    got, rec = paper_take("packed", packed, "s", rows, arr, probe, n_rows=n,
+                          fields=STRUCT_FIELDS)
+    fr = FileReader(packed)
+    s = time.perf_counter()
+    f0 = fr.scan_packed_field("s", ["f0"])
+    scan_ms = (time.perf_counter() - s) * 1e3
+    check(same_values(arr.children[0][1], f0.children[0][1]), "paper struct: packed f0 scan")
+    check(fr.io_stats().bytes_read == fr.data_bytes(), "paper struct: a packed field scan "
+          "did not read the whole stride")
+    rec["scan_one_field_ms"] = scan_ms
+    rec["scan_one_field_bytes"] = fr.io_stats().bytes_read
+    emit({"phase": "paper_struct", **rec})
+    shredded = write_table({"s": arr}, WriteOptions("lance", decode="device"))
+    got2, rec = paper_take("lance", shredded, "s", rows, arr, probe, n_rows=n,
+                           fields=STRUCT_FIELDS)
+    check(same_values(got, got2), "paper struct: packed and shredded takes differ")
+    emit({"phase": "paper_struct", **rec})
+
+
+def nested(depth, n):
+    """int64 row ids wrapped in ``depth`` single-item list levels (Fig 11)."""
+    arr = A.PrimitiveArray(T.int64(), np.ones(n, bool), np.arange(n, dtype=np.int64))
+    for _ in range(depth):
+        arr = A.ListArray(T.List(arr.type), np.ones(n, bool), np.arange(n + 1, dtype=np.int64),
+                          arr)
+    return arr
+
+
+def paper_nesting(rng, probe):
+    """Fig 11's nesting rows: Arrow chases one more offsets level per depth;
+    Lance full-zip stays at 2 IOPS (1 at depth 0), and adaptive Lance
+    (mini-block) at 1."""
+    rows = rng.choice(NEST_ROWS, TAKE_N, replace=False)
+    for depth in NEST_DEPTHS:
+        arr = nested(depth, NEST_ROWS)
+        first = None
+        for label, opts in (("arrow", WriteOptions("arrow")),
+                            ("lance-fullzip", WriteOptions("lance-fullzip", decode="device")),
+                            ("lance", WriteOptions("lance", decode="device"))):
+            got, rec = paper_take(label, write_table({"c": arr}, opts), "c", rows, arr, probe,
+                                  depth=depth, n_rows=NEST_ROWS)
+            first = got if first is None else first
+            check(same_values(first, got), f"paper nesting {depth} {label}: differs from arrow")
+            emit({"phase": "paper_nesting", **rec})
+
+
+def loader_path_phase(seed, probe):
+    """The training input of smollm-360m: a token file written for the
+    device route and its numpy twin, each read by a TokenLoader for
+    LOADER_BATCHES batches; the batches and ``batch_for_step`` agree."""
+    s = time.perf_counter()
+    corpus = synth.token_corpus(LOADER_DOCS, LOADER_SEQ, LOADER_VOCAB, seed=seed)
+    rec = {"phase": "loader", "documents": LOADER_DOCS, "tokens": int(len(corpus.child.values)),
+           "gen_s": time.perf_counter() - s, "write_s": {}, "file_bytes": {}}
+    files = {}
+    for decode in ("device", "numpy"):
+        s = time.perf_counter()
+        files[decode] = write_table({"tokens": corpus}, WriteOptions("lance", decode=decode))
+        rec["write_s"][decode] = time.perf_counter() - s
+        rec["file_bytes"][decode] = len(files[decode])
+    del corpus
+    ops.reset_counts()  # the loader path starts here
+    batches, steps = {}, {}
+    for decode in ("device", "numpy"):
+        probe.collect()
+        s = time.perf_counter()
+        ld = TokenLoader(files[decode], batch=LOADER_BATCH, seq_len=LOADER_SEQ, seed=seed,
+                         device="cuda")
+        try:
+            check(ld.reader.decode == decode, f"loader: the {decode} file reads on {ld.reader.decode}")
+            out = [next(ld)["tokens"]]  # the producer scans the file before its first batch
+            scan_s = time.perf_counter() - s
+            times = probe.collect()
+            out += [next(ld)["tokens"] for _ in range(LOADER_BATCHES - 1)]
+            batch_s = time.perf_counter() - s - scan_s
+            steps[decode] = ld.batch_for_step(LOADER_STEP)["tokens"]
+        finally:
+            ld.close()
+        batches[decode] = out
+        kernel_ms = probe.kernel_ms(times)["miniblock_decode"]
+        copy_ms = times.get("to_device", 0.0) + times.get("to_host", 0.0)
+        rec[decode] = {"scan_s": scan_s, "tokens_per_s": rec["tokens"] / scan_s,
+                       "batches_s": batch_s, "kernel_ms": kernel_ms, "copy_ms": copy_ms,
+                       "kernel_share": kernel_ms / (scan_s * 1e3),
+                       "copy_share": copy_ms / (scan_s * 1e3)}
+    shape = (LOADER_BATCH, LOADER_SEQ + 1)
+    check(all(b.dtype == np.int32 and b.shape == shape for b in batches["device"]),
+          "loader: batches are not int32 of (batch, seq_len + 1)")
+    check(all(np.array_equal(a, b) for a, b in zip(batches["device"], batches["numpy"]))
+          and len(batches["device"]) == LOADER_BATCHES, "loader: the routes' batches differ")
+    check(np.array_equal(steps["device"], steps["numpy"]), "loader: batch_for_step differs")
+    launches = dict(ops.launches)  # the loader path ends here
+    fallbacks = dict(ops.fallbacks)
+    emit({**rec, "batches": LOADER_BATCHES, "batch": LOADER_BATCH, "seq_len": LOADER_SEQ,
+          "launches": launches, "fallbacks": fallbacks})
+    check(launches["miniblock_decode"] > 0, "miniblock_decode never launched on the loader path")
+    check(not fallbacks, f"loader: fell back to the host: {fallbacks}")
+    return launches
+
+
+def kv_path_phase(seed, probe):
+    """smollm-360m's paged K pool: KV_REQUESTS prefills, then KV_STEPS
+    decode steps that append one token to every request and gather every
+    request's KV through ``fullzip_gather``; after step KV_REPLACE_AT half
+    of the requests are released and replaced, so freed blocks are reused.
+    Every gather equals a mirror of the appended values rounded to bf16 on
+    the host, and the plain gather of the same store, at tolerance 0."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 23)
+    ops.reset_counts()  # the kv path starts here
+    kv = PagedKVCache(KV_BLOCKS, KV_FEATURES)  # bf16 on the card
+    row_bytes = BLOCK * KV_FEATURES * kv.store.element_size()
+    check(kv.store.device.type == "cuda" and kv.store.view(torch.uint8).shape ==
+          (KV_BLOCKS, row_bytes), "kv: the store is not the card's bf16 block rows")
+    mirror = {}  # rid -> [host-rounded values on the card, length]
+    wrong = torch.zeros((), dtype=torch.int64, device=dev)
+    rec = {"phase": "kv", "blocks": KV_BLOCKS, "row_bytes": row_bytes,
+           "pool_bytes": kv.store.numel() * kv.store.element_size(), "requests": KV_REQUESTS,
+           "steps": KV_STEPS, "prefill_tokens": 0, "prefill_wall_ms": 0.0,
+           "gathers": 0, "gather_bytes": 0, "step_wall_ms": 0.0}
+
+    def prefill(rids):
+        lens = rng.integers(KV_PROMPT[0], KV_PROMPT[1] + 1, len(rids))
+        for rid, n in zip(rids, lens):
+            x = rng.standard_normal((int(n), KV_FEATURES), dtype=np.float32)
+            n = int(n)
+            m = torch.empty((n + KV_STEPS, KV_FEATURES), dtype=torch.bfloat16, device=dev)
+            m[:n] = torch.from_numpy(x).to(torch.bfloat16).to(dev)
+            mirror[rid] = [m, n]
+            s = time.perf_counter()
+            kv.add_request(rid)
+            kv.append(rid, x)
+            torch.cuda.synchronize()
+            rec["prefill_wall_ms"] += (time.perf_counter() - s) * 1e3
+            rec["prefill_tokens"] += n
+
+    prefill(list(range(KV_REQUESTS)))
+    live = list(range(KV_REQUESTS))
+    probe.collect()
+    reused = 0
+    for step in range(KV_STEPS):
+        x = rng.standard_normal((len(live), 1, KV_FEATURES), dtype=np.float32)
+        for rid, xi in zip(live, x):
+            m = mirror[rid]
+            m[0][m[1]] = torch.from_numpy(xi[0]).to(torch.bfloat16).to(dev)
+            m[1] += 1
+        s = time.perf_counter()
+        for rid, xi in zip(live, x):
+            kv.append(rid, xi)
+        outs = [kv.gather(rid) for rid in live]
+        torch.cuda.synchronize()
+        rec["step_wall_ms"] += (time.perf_counter() - s) * 1e3
+        store = kv.store.view(torch.uint8)
+        for rid, got in zip(live, outs):
+            m, n = mirror[rid]
+            table = torch.from_numpy(kv.block_table(rid)).to(dev)
+            plain = ref.fullzip_gather_ref(store, table).view(torch.bfloat16)
+            plain = plain.reshape(-1, KV_FEATURES)[:n]
+            wrong += (got.view(torch.int16) != m[:n].view(torch.int16)).any(1).sum()
+            wrong += (got.view(torch.int16) != plain.view(torch.int16)).any(1).sum()
+            rec["gathers"] += 1
+            rec["gather_bytes"] += len(table) * row_bytes
+        del outs
+        check(int(wrong) == 0, f"kv step {step}: {int(wrong)} gathered rows wrong")
+        if step + 1 == KV_REPLACE_AT:
+            gone = live[::2]
+            freed = {b for rid in gone for b in kv.reqs[rid].block_ids}
+            for rid in gone:
+                kv.release(rid)
+                del mirror[rid]
+            new = list(range(KV_REQUESTS, KV_REQUESTS + len(gone)))
+            prefill(new)
+            reused = len(freed & {b for rid in new for b in kv.reqs[rid].block_ids})
+            live = live[1::2] + new
+            check(reused > 0, "kv: no freed block was reused")
+    times = probe.collect()
+    kernel_ms = probe.kernel_ms(times)["fullzip_gather"]
+    launches = dict(ops.launches)  # the kv path ends here
+    rec.update({"tolerance": 0, "rows_wrong": int(wrong), "reused_blocks": reused,
+                "utilization": kv.utilization, "kernel_ms": kernel_ms,
+                "copy_ms": times.get("to_device", 0.0) + times.get("to_host", 0.0),
+                "kernel_share": kernel_ms / rec["step_wall_ms"], "launches": launches,
+                "fallbacks": dict(ops.fallbacks)})
+    emit(rec)
+    check(launches["fullzip_gather"] == rec["gathers"],
+          f"kv: {launches['fullzip_gather']} gather launches for {rec['gathers']} gathers")
+    return launches
+
+
 def bitunpack_path_phase(rng):
     """The bitunpack kernel's own path: no reader calls it; the JAX package
     drives it at 2**20 values of 11 bits (kernel_bench)."""
@@ -1444,7 +1825,8 @@ def kernel_case(name, a, kw):
         "operations": n_vals, "ops_per_s": INT_OPS_PER_S}
 
 
-PATH_ORDER = {"take": 0, "search": 1, "tiered": 2, "serve": 3, "bitunpack": 4}
+PATH_ORDER = {"take": 0, "search": 1, "tiered": 2, "serve": 3, "paper": 4, "loader": 5,
+              "kv": 6, "bitunpack": 7}
 
 
 def measure_phase(probe, smallest, launches, sweep, rng):
@@ -1537,7 +1919,13 @@ def main() -> int:
     launches["tiered"] = timed("tiered", tiered_path_phase, table, files, rng, probe)
     probe.path = "serve"
     launches["serve"] = timed("serve", serve_path_phase, table, files, args.seed, probe)
-    del files
+    del table, files
+    probe.path = "paper"
+    launches["paper"] = timed("paper", paper_path_phase, args.seed, probe)
+    probe.path = "loader"
+    launches["loader"] = timed("loader", loader_path_phase, args.seed, probe)
+    probe.path = "kv"
+    launches["kv"] = timed("kv", kv_path_phase, args.seed, probe)
     probe.path = "bitunpack"
     launches["bitunpack"] = bitunpack_path_phase(rng)
     probe.restore()

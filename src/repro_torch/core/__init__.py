@@ -1,7 +1,8 @@
 # The paper's primary contribution: adaptive structural encodings for
 # columnar storage (Lance 2.1).  Shredding (Dremel rep/def levels), the
-# mini-block and full-zip structural encodings and the file container with
-# exact IOP accounting — the port's own copy of ``repro.core``'s take path.
+# mini-block and full-zip structural encodings, the Parquet-style and
+# Arrow-style baselines, struct packing, and the file container with exact
+# IOP accounting — the port's own copy of the JAX package's ``core``.
 
 from . import types  # noqa: F401
 from .adaptive import FULLZIP_THRESHOLD_BYTES, choose_encoding  # noqa: F401

@@ -141,11 +141,14 @@ class VarBinaryArray(Array):
 
     def take(self, indices: np.ndarray) -> "VarBinaryArray":
         idx = np.asarray(indices, dtype=np.int64)
-        lengths = (self.offsets[1:] - self.offsets[:-1])[idx]
+        # lengths of the taken rows only (not a diff of every row: the
+        # writers take chunk by chunk, so that would be quadratic)
+        starts = self.offsets[:-1][idx]
+        lengths = self.offsets[1:][idx] - starts
         new_off = np.zeros(len(idx) + 1, dtype=np.int64)
         np.cumsum(lengths, out=new_off[1:])
         # one repeat/arange gather instead of a per-value copy loop
-        src = ragged_indices(self.offsets[:-1][idx], lengths)
+        src = ragged_indices(starts, lengths)
         out = self.data[src] if len(src) else np.zeros(0, dtype=np.uint8)
         return VarBinaryArray(self.type, self.validity[idx], new_off, out)
 
@@ -163,10 +166,11 @@ class ListArray(Array):
 
     def take(self, indices: np.ndarray) -> "ListArray":
         idx = np.asarray(indices, dtype=np.int64)
-        lengths = (self.offsets[1:] - self.offsets[:-1])[idx]
+        starts = self.offsets[:-1][idx]
+        lengths = self.offsets[1:][idx] - starts
         new_off = np.zeros(len(idx) + 1, dtype=np.int64)
         np.cumsum(lengths, out=new_off[1:])
-        child_idx = ragged_indices(self.offsets[:-1][idx], lengths)
+        child_idx = ragged_indices(starts, lengths)
         return ListArray(self.type, self.validity[idx], new_off, self.child.take(child_idx))
 
 

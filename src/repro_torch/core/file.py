@@ -11,16 +11,15 @@ it is the search cache + file metadata of §2.3; its size is reported so the
 0.1 % goal can be checked).
 
 Encodings: ``lance`` (adaptive mini-block/full-zip, §4), ``lance-miniblock``
-/ ``lance-fullzip`` (forced, for the ablations).  The port writes the same
-bytes as the JAX package.  The baselines (``parquet``, ``arrow``) and struct
-packing (``packed``) are not ported yet: writing or opening them raises
-``NotImplementedError``.
+/ ``lance-fullzip`` (forced, for the ablations), ``parquet`` (§3.1),
+``arrow`` (§3.2), ``packed`` (struct packing, §4.3).  The port writes the
+same bytes as the JAX package for the same options.
 """
 
 from __future__ import annotations
 
 import struct as _struct
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -28,10 +27,13 @@ from . import arrays as A
 from . import types as T
 from . import msgpack_subset
 from .adaptive import choose_encoding
+from .arrow_like import ArrowReader, encode_arrow
 from .encodings_base import EncodedColumn
 from .fullzip import FullZipReader, encode_fullzip
 from .io_sim import Disk
 from .miniblock import MiniBlockReader, encode_miniblock
+from .packing import PackedStructReader, encode_packed_struct
+from .parquet_like import ParquetReader, encode_parquet
 from .shred import ShreddedLeaf, _def_codes, leaf_paths, shred, unshred
 
 MAGIC = b"LNC1"
@@ -130,8 +132,6 @@ def unpack_meta(blob: bytes):
 # ---------------------------------------------------------------------------
 
 
-_NOT_PORTED = ("ROADMAP.md, Queue 1: the parquet, arrow and packed "
-               "readers are not ported yet")
 # decode routes: the footer keeps the JAX package's name for the device route
 _FOOTER_DECODE = {"numpy": "numpy", "device": "pallas"}
 _DECODE_FROM_FOOTER = {"numpy": "numpy", "pallas": "device"}
@@ -146,14 +146,22 @@ def _check_decode(decode: str) -> str:
 class WriteOptions:
     def __init__(
         self,
-        encoding: str = "lance",  # lance | lance-miniblock | lance-fullzip
+        encoding: str = "lance",  # lance | lance-miniblock | lance-fullzip | parquet | arrow
+        page_bytes: int = 8 * 1024,  # parquet page target
         fixed_codec: Optional[str] = None,
         bytes_codec: Optional[str] = None,
+        dict_encode: bool = False,  # parquet dictionary encoding
+        arrow_compress: bool = False,
+        packed_columns: Sequence[str] = (),  # struct columns to pack (4.3)
         decode: str = "numpy",  # default chunk decoder: numpy | device
     ):
         self.encoding = encoding
+        self.page_bytes = page_bytes
         self.fixed_codec = fixed_codec
         self.bytes_codec = bytes_codec
+        self.dict_encode = dict_encode
+        self.arrow_compress = arrow_compress
+        self.packed_columns = tuple(packed_columns)
         self.decode = _check_decode(decode)
 
 
@@ -182,8 +190,14 @@ def _encode_leaf(leaf: ShreddedLeaf, opts: WriteOptions) -> EncodedColumn:
             fixed_codec=opts.fixed_codec or "plain",
             bytes_codec=bc,
         )
-    if enc in ("parquet", "arrow"):
-        raise NotImplementedError(f"encoding {enc!r}: {_NOT_PORTED}")
+    if enc == "parquet":
+        return encode_parquet(
+            leaf,
+            page_bytes=opts.page_bytes,
+            fixed_codec=opts.fixed_codec,
+            bytes_codec=opts.bytes_codec or "zstd_chunk",
+            dict_encode=opts.dict_encode,
+        )
     raise ValueError(enc)
 
 
@@ -195,18 +209,31 @@ def write_table(table: Dict[str, A.Array], opts: Optional[WriteOptions] = None) 
     cols_meta: List[Dict] = []
     for name, arr in table.items():
         col: Dict = {"name": name, "type": type_to_dict(arr.type), "n_rows": len(arr)}
-        col["kind"] = "shredded"
-        leaves_meta = []
-        for leaf in shred(arr):
-            ec = _encode_leaf(leaf, opts)
-            leaves_meta.append({
+        if name in opts.packed_columns or opts.encoding == "arrow":
+            if name in opts.packed_columns:
+                ec = encode_packed_struct(arr)
+                col["kind"] = "packed"
+            else:
+                ec = encode_arrow(arr, compress=opts.arrow_compress)
+                col["kind"] = "arrow"
+            col["leaves"] = [{
                 "base": len(payload), "meta": ec.meta, "bytes": len(ec.payload),
                 "search_cache": ec.search_cache_bytes,
-                "path": list(leaf.path),
-                "n_entries": leaf.n_entries,
-            })
+            }]
             payload += ec.payload + b"\x00" * ((-len(ec.payload)) % 8)
-        col["leaves"] = leaves_meta
+        else:
+            col["kind"] = "shredded"
+            leaves_meta = []
+            for leaf in shred(arr):
+                ec = _encode_leaf(leaf, opts)
+                leaves_meta.append({
+                    "base": len(payload), "meta": ec.meta, "bytes": len(ec.payload),
+                    "search_cache": ec.search_cache_bytes,
+                    "path": list(leaf.path),
+                    "n_entries": leaf.n_entries,
+                })
+                payload += ec.payload + b"\x00" * ((-len(ec.payload)) % 8)
+            col["leaves"] = leaves_meta
         cols_meta.append(col)
     footer = pack_meta({"columns": cols_meta,
                         "options": {"encoding": opts.encoding,
@@ -222,7 +249,10 @@ def write_table(table: Dict[str, A.Array], opts: Optional[WriteOptions] = None) 
 _READERS = {
     "miniblock": MiniBlockReader,
     "fullzip": FullZipReader,
+    "parquet": ParquetReader,
 }
+# the column kinds stored whole, one reader each (no shredded leaves)
+_WHOLE_READERS = {"arrow": ArrowReader, "packed": PackedStructReader}
 
 
 class FileReader:
@@ -253,6 +283,10 @@ class FileReader:
 
     ``device`` is where the device routes run: CUDA by default, which raises
     without a GPU; ``device="cpu"`` runs the kernels' plain PyTorch versions.
+    Parquet pages, Arrow buffers and packed structs decode on the host, as
+    in the JAX package, whatever ``decode`` says.  ``dict_cached`` keeps a
+    Parquet column's dictionary page in the search cache (Lance-style), so a
+    take does not refetch it.
 
     ``scheduler``/``base`` plug this file into a *shared* IO path (the
     multi-file dataset layer, ``repro_torch.dataset``): instead of building
@@ -262,9 +296,10 @@ class FileReader:
     dispatch and share one cache budget.
     """
 
-    def __init__(self, file_bytes_or_disk, store=None, queue_depth: int = 256,
-                 readahead="auto", decode: Optional[str] = None, scheduler=None,
-                 base: int = 0, device=None, tracer=None):
+    def __init__(self, file_bytes_or_disk, dict_cached: bool = False,
+                 store=None, queue_depth: int = 256, readahead="auto",
+                 decode: Optional[str] = None, scheduler=None, base: int = 0,
+                 device=None, tracer=None):
         from ..kernels.ops import resolve_device
         from ..store import IOScheduler, make_store
 
@@ -300,6 +335,7 @@ class FileReader:
         self.tracer = self.scheduler.tracer
         self.meta, self.footer_bytes = read_footer(disk.read, len(disk))
         self.columns = {c["name"]: c for c in self.meta["columns"]}
+        self.dict_cached = dict_cached
         if decode is None:
             recorded = self.meta.get("options", {}).get("decode") or "numpy"
             decode = _DECODE_FROM_FOOTER.get(recorded, recorded)
@@ -311,22 +347,21 @@ class FileReader:
         if name in self._readers:
             return self._readers[name]
         col = self.columns[name]
-        if col["kind"] != "shredded":
-            raise NotImplementedError(
-                f"column {name!r} is stored as {col['kind']!r}: {_NOT_PORTED}")
         typ = type_from_dict(col["type"])
         out = []
-        protos = {tuple(p): tp for p, tp in leaf_paths(typ)}
-        for lm in col["leaves"]:
-            path = tuple(lm["path"])
-            type_path = protos[path]
-            proto = _proto_from(path, type_path, lm)
-            enc = lm["meta"]["encoding"]
-            if enc not in _READERS:
-                raise NotImplementedError(
-                    f"column {name!r} is encoded as {enc!r}: {_NOT_PORTED}")
-            out.append(_READERS[enc](lm["meta"], lm["base"], proto,
-                                     decode=self.decode, device=self.device))
+        if col["kind"] in _WHOLE_READERS:
+            lm = col["leaves"][0]
+            out.append(_WHOLE_READERS[col["kind"]](lm["meta"], lm["base"], typ))
+        else:
+            protos = {tuple(p): tp for p, tp in leaf_paths(typ)}
+            for lm in col["leaves"]:
+                path = tuple(lm["path"])
+                proto = _proto_from(path, protos[path], lm)
+                enc = lm["meta"]["encoding"]
+                # Parquet pages decode on the host: no decode route
+                kw = ({"dict_cached": self.dict_cached} if enc == "parquet" else
+                      {"decode": self.decode, "device": self.device})
+                out.append(_READERS[enc](lm["meta"], lm["base"], proto, **kw))
         self._readers[name] = out
         return out
 
@@ -342,20 +377,25 @@ class FileReader:
                 # each row once
                 io.note_requests(len(rows))
                 res = self.take_leaves(name, rows, io)
+            if col["kind"] in _WHOLE_READERS:
+                return res
             return unshred(res, type_from_dict(col["type"]))
 
     def take_leaves(self, name: str, rows, io):
         """One take through an externally-owned batch handle.
 
-        Returns the list of per-leaf ``ShreddedLeaf`` slices (request order,
-        duplicates materialized) — the dataset layer concatenates leaves
-        across fragments before unshredding once.  Reads are rebased by this
-        file's ``base`` so a shared batch prices them in the global address
-        space.
+        Returns the final :class:`~repro_torch.core.arrays.Array` for
+        arrow/packed columns, or the list of per-leaf ``ShreddedLeaf``
+        slices (request order, duplicates materialized) for shredded ones —
+        the dataset layer concatenates leaves across fragments before
+        unshredding once.  Reads are rebased by this file's ``base`` so a
+        shared batch prices them in the global address space.
         """
         rows = np.asarray(rows, dtype=np.int64)
         readers = self._leaf_readers(name)
         io = io.at(self.base)
+        if self.columns[name]["kind"] in _WHOLE_READERS:
+            return readers[0].take(rows, io)
         return [r.take(rows, io) for r in readers]
 
     def scan(self, name: str, io_chunk: int = 8 << 20) -> A.Array:
@@ -366,11 +406,23 @@ class FileReader:
 
     def scan_into(self, name: str, io, io_chunk: int = 8 << 20) -> A.Array:
         """One full-column scan through an externally-owned batch handle."""
-        typ = type_from_dict(self.columns[name]["type"])
+        col = self.columns[name]
+        typ = type_from_dict(col["type"])
         readers = self._leaf_readers(name)
         io = io.at(self.base)
+        if col["kind"] == "arrow":
+            return readers[0].scan(io)
+        if col["kind"] == "packed":
+            return readers[0].scan(io, io_chunk=io_chunk)
         leaves = [r.scan(io, io_chunk=io_chunk) for r in readers]
         return unshred(leaves, typ)
+
+    def scan_packed_field(self, name: str, fields) -> A.Array:
+        """Scan only ``fields`` of a packed struct column: the whole stride
+        is still read (the §4.3 trade-off, Fig 18)."""
+        readers = self._leaf_readers(name)
+        with self.scheduler.batch(f"scan:{name}", prefetch=True) as io:
+            return readers[0].scan(io.at(self.base), fields=fields)
 
     # -- accounting -------------------------------------------------------------
     def search_cache_bytes(self, name: Optional[str] = None) -> int:

@@ -28,7 +28,8 @@ log-step pointer doubling over each bounded window instead: the
 entry-successor map is built for every byte position in one vectorized
 pass, then squared ``log2(entries)`` times to enumerate all entry starts.
 Once entry positions are known, control words, length prefixes and value
-bytes are all sliced out in one gather pass each.
+bytes are all sliced out in one gather pass each.  The per-value walk is
+kept as ``_decode_entries_walk``: it is the property tests' oracle.
 
 Fixed-stride columns additionally have a fused device gather route
 (``decode="device"``): the request-order fan-out permutation runs as one
@@ -412,6 +413,58 @@ class FullZipReader(ColumnReader):
         return self._decode_var_at(raw, entry_pos)
 
     # ------------------------------------------------------------------
+    def _decode_entries_walk(self, raw: np.ndarray, n_hint: Optional[int] = None):
+        """The sequential per-value walk (paper §6.3/Fig 17 cost model): one
+        entry at a time, each position read off the previous entry's length.
+        Kept as the decode oracle: the property tests pit the row-parallel
+        paths against it."""
+        m = self.meta
+        W, L, vw = m["W"], m["L"], m["vw"]
+        max_rep, max_def = self.proto.max_rep, self.proto.max_def
+        if vw is not None:
+            return self._decode_fixed(raw)
+        buf = raw.tobytes()
+        mv = memoryview(buf)
+        pos = 0
+        cws: List[int] = []
+        vlens: List[int] = []
+        vslices: List[bytes] = []
+        total = len(buf)
+        db = max_def.bit_length()
+        while pos < total and (n_hint is None or len(cws) < n_hint):
+            if W:
+                w = int.from_bytes(mv[pos : pos + W], "little")
+                pos += W
+            else:
+                w = 0  # no lists & no nulls: every entry is a bare value
+            cws.append(w)
+            dval = w & ((1 << db) - 1) if db else 0
+            if dval == 0:  # valid value follows
+                vl = int.from_bytes(mv[pos : pos + L], "little")
+                pos += L
+                vslices.append(bytes(mv[pos : pos + vl]))
+                vlens.append(vl)
+                pos += vl
+        n = len(cws)
+        words = np.array(cws, dtype=np.uint32)
+        wb = np.zeros((n, W), dtype=np.uint8)
+        for b in range(W):
+            wb[:, b] = (words >> (8 * b)).astype(np.uint8)
+        rep, defs = unpack_control_words(wb.reshape(-1), n, max_rep, max_def) if W else (None, None)
+        bc = get_bytes_codec(m["bytes_codec"])
+        stored = np.array(vlens, dtype=np.int64)
+        blob = np.frombuffer(b"".join(vslices), dtype=np.uint8) if vslices else np.zeros(0, np.uint8)
+        out_lens, out_data = bc.decode(Encoded(blob, m["codec_meta"]), stored)
+        offsets = np.zeros(len(out_lens) + 1, dtype=np.int64)
+        np.cumsum(out_lens, out=offsets[1:])
+        vals = A.VarBinaryArray(
+            self.proto.leaf_type.with_nullable(False),
+            np.ones(len(out_lens), bool),
+            offsets,
+            out_data,
+        )
+        return rep, defs, vals
+
     def take(self, rows: np.ndarray, io) -> ShreddedLeaf:
         """Batched random access: rows are deduplicated before IO, every
         span is fetched in one phase-grouped ``read_many`` dispatch (index

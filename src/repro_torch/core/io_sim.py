@@ -18,6 +18,7 @@ regime) is deliberately not carried: the port prices no TPU.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,11 +32,20 @@ __all__ = [
 
 
 class Disk:
-    """An addressable in-memory byte store (the 'file')."""
+    """An addressable byte store (the 'file').  In-memory by default; can be
+    backed by a real file for benchmarks that want the OS in the loop.  A
+    file-backed disk is read-only and holds no open handle: each read opens
+    the file, seeks and reads."""
 
-    def __init__(self, data: Optional[np.ndarray] = None):
-        self._mem = np.asarray(data, dtype=np.uint8) if data is not None else np.zeros(0, np.uint8)
-        self._size = len(self._mem)
+    def __init__(self, data: Optional[np.ndarray] = None, path: Optional[str] = None):
+        if path is not None:
+            self._path = os.fspath(path)
+            self._mem = None
+            self._size = os.path.getsize(self._path)
+        else:
+            self._path = None
+            self._mem = np.asarray(data, dtype=np.uint8) if data is not None else np.zeros(0, np.uint8)
+            self._size = len(self._mem)
 
     @staticmethod
     def from_bytes(b: bytes) -> "Disk":
@@ -53,13 +63,22 @@ class Disk:
                 f"read [{offset}, {offset + size}) out of bounds for "
                 f"{self._size}-byte disk"
             )
+        if self._path is not None:
+            with open(self._path, "rb") as f:
+                f.seek(offset)
+                buf = f.read(size)
+            if len(buf) != size:  # the backing file shrank
+                raise IOError(f"short read: wanted {size} bytes, got {len(buf)}")
+            return np.frombuffer(buf, dtype=np.uint8).copy()
         # copy so callers can never alias (or mutate) the backing store
         return self._mem[offset : offset + size].copy()
 
     def write(self, offset: int, data) -> None:
-        """Data-plane write: store ``data`` at ``offset``.  Durability is
-        *not* implied — the store decides when the bytes count as persisted
-        on the backing device."""
+        """Data-plane write (in-memory disks only): store ``data`` at
+        ``offset``.  Durability is *not* implied — the store decides when the
+        bytes count as persisted on the backing device."""
+        if self._path is not None:
+            raise IOError("file-backed disks are read-only")
         data = np.frombuffer(bytes(data), dtype=np.uint8) \
             if isinstance(data, (bytes, bytearray)) else np.asarray(data, np.uint8)
         offset = int(offset)
@@ -78,6 +97,8 @@ class Disk:
         nbytes = int(nbytes)
         if nbytes < 0:
             raise ValueError(f"cannot grow by {nbytes} bytes")
+        if self._path is not None:
+            raise IOError("file-backed disks cannot grow")
         new_size = self._size + nbytes
         if new_size > len(self._mem):
             buf = np.zeros(max(new_size, 2 * len(self._mem), 4096), np.uint8)
@@ -92,6 +113,8 @@ class Disk:
         """Zero a byte range in place (the crash simulator's torn-write
         model: unflushed bytes vanish from the media)."""
         lo, hi = max(int(lo), 0), min(int(hi), self._size)
+        if self._path is not None:
+            raise IOError("file-backed disks are read-only")
         if hi > lo:
             self._mem[lo:hi] = 0
 
@@ -116,6 +139,9 @@ class Disk:
                 f"gather read out of bounds for {self._size}-byte disk"
             )
         np.cumsum(sizes, out=out_offs[1:])
+        if self._path is not None:  # one read per span
+            parts = [self.read(int(o), int(s)) for o, s in zip(offsets, sizes)]
+            return np.concatenate(parts), out_offs
         total = int(out_offs[-1])
         idx = np.repeat(offsets - out_offs[:-1], sizes) + np.arange(
             total, dtype=np.int64

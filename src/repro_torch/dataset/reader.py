@@ -139,6 +139,8 @@ class DatasetReader:
                     self.fragments[f].take_leaves(name, local[fi == f], io)
                     for f in frag_ids
                 ]
+            if col["kind"] in ("arrow", "packed"):
+                return A.concat(parts).take(inv)
             n_leaves = len(parts[0])
             leaves = [
                 reorder_leaf_rows(concat_leaves([p[k] for p in parts]), inv)

@@ -377,11 +377,12 @@ def at_offset(a: np.ndarray, device, offset: int = 0) -> torch.Tensor:
 
 def gather_cases(rng: np.random.Generator, n_rows: int = 300):
     """The ``fullzip_gather`` sweep as numpy inputs ``(label, zipped, rows,
-    offset)``: strides from 1 byte to rows larger than a 16 KB ring slot,
+    offset)``: strides from 1 byte to rows larger than a 16 KB ring slot (up
+    to the paged KV cache's 81,920-byte block rows, five slots each),
     ``n_take`` of 0, 1, a few, and not a multiple of any stage depth, one
     heavily duplicated request, and ``zipped`` views whose base sits
     ``offset`` bytes past an aligned one."""
-    for stride in (1, 8, 16, 24, 33, 129, 136, 512, 1536, 16400, 40000):
+    for stride in (1, 8, 16, 24, 33, 129, 136, 512, 1536, 16400, 40000, 81920):
         zipped = rng.integers(0, 256, (n_rows, stride), dtype=np.uint8)
         for n_take in (0, 1, 7, 64, 1000, 1001):
             rows = rng.integers(0, n_rows, n_take).astype(np.int32)

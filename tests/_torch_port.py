@@ -114,6 +114,24 @@ def assert_same_array(want, got):
         np.testing.assert_array_equal(want.values, got.values)
 
 
+def buffers(a):
+    """An array of either package as comparable plain data: its class and
+    type, then its validity, offsets, values and children, each buffer as
+    bytes (with its dtype), recursively (utf8 as bytes, never decoded)."""
+    out = [type(a).__name__, snap(a.type), a.validity.tobytes()]
+    if hasattr(a, "offsets"):
+        out.append(a.offsets.tobytes())
+    if hasattr(a, "child"):
+        out.append(buffers(a.child))
+    elif hasattr(a, "children"):
+        out.extend((n, buffers(c)) for n, c in a.children)
+    elif hasattr(a, "data"):
+        out.append(a.data.tobytes())
+    else:
+        out.extend((a.values.dtype.str, a.values.shape, a.values.tobytes()))
+    return out
+
+
 def assert_same_tiers(want, got):
     """Every tier's counters identical, field by field (hits, misses,
     evictions, prefetch, reads, writes, flushes, RMW, dirty and lost bytes,
@@ -157,15 +175,16 @@ _LOCKSTEP_MODULES = ("core.io_sim", "obs", "store", "store.stats",
                      "serve.workload", "dataset")
 # the entry points that take the port's ``device`` (CPU in the tests)
 _DEVICE_ENTRY_POINTS = ("FileReader", "DatasetReader", "DatasetWriter",
-                        "Retriever")
+                        "Retriever", "TokenLoader")
 
 
 def package(root: str, **port_kw):
     """A flat namespace of one package's public names (io_sim, obs, store,
-    the serve workload, dataset, the file API, ``A``/``T``), the entry points
-    bound to ``port_kw``, and ``route``: the device decode route's name in
-    this package (``"pallas"`` in the JAX package, ``"device"`` in the
-    port)."""
+    the serve workload, dataset, the file API, ``A``/``T``, ``shred``,
+    ``choose_encoding``, the ``synth`` module and the token loader), the
+    entry points bound to ``port_kw``, and ``route``: the device decode
+    route's name in this package (``"pallas"`` in the JAX package,
+    ``"device"`` in the port)."""
     import functools
     import importlib
     import types
@@ -183,6 +202,11 @@ def package(root: str, **port_kw):
     ns.Retriever = importlib.import_module(f"{root}.serve.engine").Retriever
     ns.A = importlib.import_module(f"{root}.core.arrays")
     ns.T = importlib.import_module(f"{root}.core.types")
+    ns.shred = importlib.import_module(f"{root}.core.shred").shred
+    ns.choose_encoding = importlib.import_module(f"{root}.core.adaptive").choose_encoding
+    ns.synth = importlib.import_module(f"{root}.data.synth")
+    loader = importlib.import_module(f"{root}.data.loader")
+    ns.TokenLoader, ns.write_token_file = loader.TokenLoader, loader.write_token_file
     for k in _DEVICE_ENTRY_POINTS:
         setattr(ns, k, functools.partial(getattr(ns, k), **port_kw))
     ns.route = "device" if port_kw else "pallas"

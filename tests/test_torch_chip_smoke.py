@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 KEYS = {"name", "path", "step", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "graph_ms", "cold_ms", "launch_us", "plain_ms", "bound_ms", "bound_by",
@@ -15,11 +17,17 @@ KEYS = {"name", "path", "step", "route", "source", "replaces", "launches", "max_
         "mismatches"}
 
 
-def test_chip_smoke_rehearses_on_the_cpu():
+@pytest.fixture(scope="module")
+def rehearsal():
+    """The rehearsal's standard output lines (one run for this module)."""
     run = subprocess.run([sys.executable, str(ROOT / "tools" / "rehearse_chip_smoke.py")],
                          cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, run.stderr[-3000:]
-    lines = run.stdout.strip().splitlines()
+    return run.stdout.strip().splitlines()
+
+
+def test_chip_smoke_rehearses_on_the_cpu(rehearsal):
+    lines = rehearsal
     assert json.loads(lines[-1]) == {"ok": True, "device": {
         "platform": "gpu", "kind": "CPU rehearsal", "count": 1}}
     assert "CPU rehearsal, 0 W" in lines[:-2]
@@ -35,7 +43,9 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert {("miniblock_decode", "take", None), ("miniblock_decode", "search", None),
             ("miniblock_decode", "tiered", None), ("fullzip_gather", "tiered", None),
             ("fullzip_gather", "take", None), ("fullzip_gather", "search", None),
-            ("fullzip_gather", "serve", None),
+            ("fullzip_gather", "serve", None), ("miniblock_decode", "paper", None),
+            ("fullzip_gather", "paper", None), ("miniblock_decode", "loader", None),
+            ("fullzip_gather", "kv", None),
             ("ivf_topk", "search", "probe"), ("bitunpack", "bitunpack", None),
             ("bitunpack", "bitunpack", "2**24")} <= entries
     assert {s for n, _, s in entries if n == "ivf_topk"} == {
@@ -43,7 +53,9 @@ def test_chip_smoke_rehearses_on_the_cpu():
     phases = [json.loads(ln).get("phase") for ln in lines if ln.startswith("{")]
     for phase in ("device", "build", "kernels", "gather_streams", "take_path", "search_path",
                   "tiered", "tiered_path", "serve", "serve_latency", "serve_chaos",
-                  "serve_trace", "serve_path", "bitunpack_path", "done"):
+                  "serve_trace", "serve_path", "paper", "paper_default_vs_tuned",
+                  "paper_struct", "paper_nesting", "paper_path", "loader", "kv",
+                  "bitunpack_path", "done"):
         assert phase in phases
     records = [json.loads(ln) for ln in lines if ln.startswith('{"phase"')]
     streams = next(r for r in records if r["phase"] == "gather_streams")
@@ -79,3 +91,46 @@ def test_chip_smoke_rehearses_on_the_cpu():
     row = next(k for k in kernels if (k["name"], k["path"]) == ("fullzip_gather", "serve"))
     assert row["launches"] == path["launches"]["fullzip_gather"]
     assert row["shape"]["n_take"] == 32
+
+
+def test_chip_smoke_rehearses_the_paper_loader_and_kv_paths(rehearsal):
+    lines = rehearsal
+    records = [json.loads(ln) for ln in lines if ln.startswith('{"phase"')]
+    kernels = {(k["name"], k["path"]): k for k in json.loads(lines[-2])["kernels"]}
+    paper = [r for r in records if r["phase"] == "paper"]
+    assert {(r["type"], r["encoding"]) for r in paper} == {
+        (t, e) for t in ("scalar", "string", "scalar-list", "string-list", "vector",
+                         "vector-list", "image", "image-list")
+        for e in ("lance", "parquet-8k", "arrow")} | {
+        ("scalar", e) for e in ("parquet-64k", "parquet-256k", "parquet-1024k",
+                                "parquet-1024k-dict")}
+    for r in paper:
+        assert r["iops_per_row"] > 0 and r["phases"] >= 1 and r["modelled_rows_per_s"] > 0
+        assert ("numpy_wall_ms" in r) == (r["encoding"] == "lance")
+    lance = {r["type"]: r for r in paper if r["encoding"] == "lance"}
+    # only the vector reaches a kernel: 60-bit scalars and var-width leaves
+    # decode on the host, counted
+    assert lance["vector"]["launches"]["fullzip_gather"] > 0
+    assert lance["scalar"]["fallbacks"] == {"decode.fallback.miniblock.>31-bit": 3}
+    assert "decode.fallback.miniblock.variable-width-leaf" in lance["string"]["fallbacks"]
+    tuned = next(r for r in records if r["phase"] == "paper_default_vs_tuned")
+    assert tuned["speedup"] > 0
+    struct = {r["encoding"]: r for r in records if r["phase"] == "paper_struct"}
+    assert struct["packed"]["iops_per_row"] == 1.0
+    assert struct["packed"]["scan_one_field_bytes"] > 0
+    nesting = {(r["depth"], r["encoding"]): r for r in records if r["phase"] == "paper_nesting"}
+    assert [nesting[(d, "arrow")]["phases"] for d in range(4)] == [1, 2, 3, 4]
+    assert {nesting[(d, "lance-fullzip")]["phases"] for d in range(1, 4)} == {2}
+    assert all(nesting[(d, "lance")]["launches"]["miniblock_decode"] > 0 for d in range(4))
+    path = next(r for r in records if r["phase"] == "paper_path")
+    assert path["launches"]["miniblock_decode"] > 0 and path["launches"]["fullzip_gather"] > 0
+    loader = next(r for r in records if r["phase"] == "loader")
+    assert loader["launches"]["miniblock_decode"] > 0 and loader["fallbacks"] == {}
+    assert loader["device"]["kernel_ms"] > 0 and loader["numpy"]["kernel_ms"] == 0
+    kv = next(r for r in records if r["phase"] == "kv")
+    assert kv["row_bytes"] == 81920 and kv["rows_wrong"] == 0 and kv["reused_blocks"] > 0
+    assert kv["launches"]["fullzip_gather"] == kv["gathers"] == 4 * 8
+    assert kernels[("fullzip_gather", "kv")]["launches"] == kv["gathers"]
+    assert kernels[("fullzip_gather", "kv")]["shape"]["row_bytes"] == 81920
+    assert kernels[("miniblock_decode", "loader")]["launches"] == \
+        loader["launches"]["miniblock_decode"]

@@ -82,7 +82,7 @@ def test_cuda_miniblock_decode_refuses_misaligned_outputs(cuda_device):
         ops.launch_miniblock_decode(*t, rep, dfs, vals, rep_bits=0, def_bits=1, vpe=1, fill=0)
 
 
-@pytest.mark.parametrize("stride", [1, 8, 16, 33, 129, 1536, 16400, 40000])
+@pytest.mark.parametrize("stride", [1, 8, 16, 33, 129, 1536, 16400, 40000, 81920])
 @pytest.mark.parametrize("n_take", [1, 7, 257, 1001])
 def test_cuda_fullzip_gather_matches_plain(cuda_device, stride, n_take):
     """Both routes (bulk for 16-byte strides, register otherwise), rows
@@ -382,3 +382,64 @@ def test_cuda_serve_smoke_matches_numpy_route(cuda_device):
         assert np.array_equal(rows, hrows)
         assert np.array_equal(got.values, want.values)
         assert np.array_equal(got.values, source[rows])
+
+
+def test_cuda_paged_kv_cache_gathers_81920_byte_rows(cuda_device):
+    """smollm-360m's K pool (320 bf16 features: 81,920-byte block rows,
+    five 16 KB ring slots each, the gather's chunked bulk route): every
+    gather launches the kernel once and equals the plain version on the same
+    store and the appended values rounded to bf16, tolerance 0."""
+    from repro_torch.serve import PagedKVCache
+
+    rng = np.random.default_rng(11)
+    kv = PagedKVCache(n_blocks=64, kv_features=320, device=cuda_device)
+    assert kv.store.view(torch.uint8).shape[1] == 81920
+    plan = ops.fullzip_plan(7, 81920, kv.store.data_ptr(), 0,
+                            torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    assert plan["route"] == "bulk" and plan["units"] == 7 * 5
+    mirror = {}
+    for rid, n in enumerate((1, 127, 128, 129, 900, 2000)):
+        x = rng.standard_normal((n, 320)).astype(np.float32)
+        kv.add_request(rid)
+        kv.append(rid, x)
+        mirror[rid] = torch.from_numpy(x).to(torch.bfloat16)
+    kv.release(2)
+    del mirror[2]
+    kv.add_request(9)
+    x = rng.standard_normal((300, 320)).astype(np.float32)
+    kv.append(9, x)
+    mirror[9] = torch.from_numpy(x).to(torch.bfloat16)
+    for rid, want in mirror.items():
+        n0 = ops.launches["fullzip_gather"]
+        got = kv.gather(rid)
+        assert ops.launches["fullzip_gather"] == n0 + 1
+        table = torch.from_numpy(kv.block_table(rid)).to(cuda_device)
+        plain = ref.fullzip_gather_ref(kv.store.view(torch.uint8), table)
+        assert torch.equal(plain.view(torch.bfloat16).reshape(-1, 320)[: len(want)], got)
+        assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+def test_cuda_token_loader_scans_through_the_decode_kernel(cuda_device):
+    """A token file written for the device route scans through
+    ``miniblock_decode`` on the card with no fallback; the batches equal
+    the numpy route's."""
+    from repro_torch.core.file import WriteOptions, write_table
+    from repro_torch.data import TokenLoader, synth
+
+    corpus = synth.token_corpus(256, 2048, 49_152, seed=4)
+    files = [write_table({"tokens": corpus}, WriteOptions("lance", decode=d))
+             for d in ("device", "numpy")]
+    ops.reset_counts()
+    dev = TokenLoader(files[0], batch=8, seq_len=2048, seed=3, device=cuda_device)
+    host = TokenLoader(files[1], batch=8, seq_len=2048, seed=3, device="cpu")
+    try:
+        for _ in range(4):
+            a, b = next(dev)["tokens"], next(host)["tokens"]
+            assert a.dtype == np.int32 and a.shape == (8, 2049)
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(dev.batch_for_step(5)["tokens"],
+                                      host.batch_for_step(5)["tokens"])
+    finally:
+        dev.close()
+        host.close()
+    assert ops.launches["miniblock_decode"] > 0 and ops.fallbacks == {}

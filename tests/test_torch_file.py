@@ -210,25 +210,6 @@ def test_decode_knob():
     assert RFileReader(port_fb).decode == "pallas"
 
 
-@pytest.mark.parametrize("encoding,kw", [("parquet", {}), ("arrow", {}),
-                                         ("lance", {"packed_columns": ("c",)})])
-def test_unported_encodings_raise(encoding, kw):
-    from repro.core import arrays as RA
-
-    arr = RA.StructArray.build(
-        [("f", RA.PrimitiveArray.build(np.arange(50, dtype=np.int64), nullable=False))],
-        nullable=False)
-    fb = r_write_table({"c": arr}, r_opts(encoding, **kw))
-    fr = FileReader(fb, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fr.take("c", np.array([1]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fr.scan("c")
-    if encoding != "lance":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            write_table({"c": to_port(arr)}, WriteOptions(encoding))
-
-
 @pytest.mark.parametrize("spec", ["tiered", "tiered-auto", "hot"])
 def test_unported_store_specs_raise(spec):
     """The cached specs (the name is from when they raised): a cold take, a

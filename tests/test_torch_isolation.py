@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports jax or the JAX package, importing the port leaves
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not ``examples/quickstart_torch.py`` imports jax or the
+JAX package, importing the port leaves
 jax unloaded, and its entry points never run on the CPU unasked."""
 
 import ast
@@ -18,7 +19,8 @@ from repro_torch.dataset import DatasetReader, DatasetWriter, write_fragments
 from repro_torch.kernels import ops
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -44,7 +46,7 @@ def test_no_jax_or_reference_import(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch.core, repro_torch.obs, repro_torch.store, "
-            "repro_torch.dataset, repro_torch.serve, repro_torch.kernels.ops, "
+            "repro_torch.dataset, repro_torch.serve, repro_torch.data, repro_torch.kernels.ops, "
             "repro_torch.kernels.build, "
             "repro_torch.kernels.ref; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "

@@ -8,26 +8,14 @@ classes.  It runs on the reference and on the port: its assertions must hold
 on both, and the log of every counter, byte, tier snapshot, decoded value and
 modelled time it records must be identical (tolerance 0).
 
-Cases of the reference that need a module the port does not have yet run on
-the Lance encodings instead, with data made by each package's own
-``arrays``:
-
-* ``test_scheduler_trace_matches_legacy_tracker`` and
-  ``test_dataset_take_matches_single_file`` take ``parquet`` and ``arrow``
-  as parameters (ROADMAP.md, Queue 1 item 6); here the four parameters are
-  Lance encodings and shapes;
-* ``test_phases_hurt_more_on_s3`` compares arrow's 3-phase List<String>
-  take with full-zip's 2-phase one; here mini-block's 1-phase take stands
-  for the shallower one;
-* ``test_retriever_tiered`` and ``test_retriever_over_dataset`` draw their
-  embeddings from ``repro.data.synth`` (item 10); here they are seeded
-  float32 vectors;
-* ``test_hbm_model_is_dma_shaped`` prices on the reference's ``HBM``, which
-  the port does not carry (a TPU's model); both packages price on a
-  ``DeviceModel`` of each package built from the reference constant's
-  fields;
-* ``test_disk_read_bounds_and_copies`` also reads a file-backed ``Disk``,
-  which the port does not have; here the in-memory disk only.
+The cases take the reference's own parameters and data: the Parquet and
+Arrow encodings, each package's ``data.synth`` embeddings, the file-backed
+``Disk``.  ``test_scheduler_trace_matches_legacy_tracker`` and
+``test_dataset_take_matches_single_file`` also run on more Lance encodings
+and shapes than the reference's.  One case differs:
+``test_hbm_model_is_dma_shaped`` prices on the reference's ``HBM``, which
+the port does not carry (a TPU's model); both packages price on a
+``DeviceModel`` of each package built from the reference constant's fields.
 """
 
 import dataclasses
@@ -40,6 +28,7 @@ import pytest
 import repro.core.arrays as RA
 import repro.core.io_sim as RIO
 import repro.core.types as RT
+import repro.data.synth as RSYNTH
 import repro.dataset as RDS
 import repro.store as RS
 from repro.core.file import FileReader as RFileReader
@@ -50,6 +39,7 @@ from repro.serve.engine import Retriever as RRetriever
 import repro_torch.core.arrays as PA
 import repro_torch.core.io_sim as PIO
 import repro_torch.core.types as PT
+import repro_torch.data.synth as PSYNTH
 import repro_torch.dataset as PDS
 import repro_torch.store as PS
 from repro_torch.core.file import FileReader as PFileReader
@@ -59,10 +49,10 @@ from repro_torch.serve import Retriever as PRetriever
 
 
 def _namespace(A, T, io, store, ds, FileReader, write_table, WriteOptions,
-               Retriever, **port_kw):
+               Retriever, synth, **port_kw):
     on = functools.partial
     return types.SimpleNamespace(
-        A=A, T=T, Disk=io.Disk, DiskView=io.DiskView, IOTracker=io.IOTracker,
+        A=A, T=T, synth=synth, Disk=io.Disk, DiskView=io.DiskView, IOTracker=io.IOTracker,
         IOStats=io.IOStats, DeviceModel=io.DeviceModel, NVME=io.NVME, S3=io.S3,
         model_time=io.model_time, BlockCache=store.BlockCache,
         FlushPolicy=store.FlushPolicy, IOScheduler=store.IOScheduler,
@@ -77,9 +67,9 @@ def _namespace(A, T, io, store, ds, FileReader, write_table, WriteOptions,
 
 
 REF = _namespace(RA, RT, RIO, RS, RDS, RFileReader, r_write_table, RWriteOptions,
-                 RRetriever)
+                 RRetriever, RSYNTH)
 PORT = _namespace(PA, PT, PIO, PS, PDS, PFileReader, p_write_table, PWriteOptions,
-                  PRetriever, device="cpu")
+                  PRetriever, PSYNTH, device="cpu")
 
 
 def snap(x):
@@ -125,11 +115,6 @@ def _mixed(m, lo, n):
     strs = m.A.from_pylist([None if i % 5 == 0 else f"s{lo + i}" for i in range(n)],
                            m.T.Utf8(True))
     return {"i": ints, "s": strs}
-
-
-def _embeddings(m, n, dim=64, seed=0):
-    vecs = np.random.default_rng(seed).standard_normal((n, dim)).astype(np.float32)
-    return m.A.FixedSizeListArray.build(vecs, nullable=False)
 
 
 def _ds_table(m, n=2000, seed=0):
@@ -407,6 +392,8 @@ def _legacy_data(m, kind):
 
 @pytest.mark.parametrize("enc,kind", [("lance-miniblock", "strings"),
                                       ("lance-fullzip", "strings"),
+                                      ("parquet", "strings"),
+                                      ("arrow", "strings"),
                                       ("lance", "strings"),
                                       ("lance-fullzip", "string-lists")])
 def test_scheduler_trace_matches_legacy_tracker(enc, kind):
@@ -582,7 +569,7 @@ def test_tier_stats_snapshots_survive_reset():
 
 def test_retriever_tiered():
     def case(m, log):
-        emb = _embeddings(m, 1500)
+        emb = m.synth.scenario("embeddings", 1500)
         r = m.Retriever(m.write_table({"embedding": emb}, m.WriteOptions("lance")),
                         "embedding", store="tiered")
         ids = np.array([5, 900, 1400])
@@ -1110,12 +1097,15 @@ def test_ingested_rows_are_nvme_warm():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("enc", ["lance-miniblock", "lance-fullzip", "lance", "lance-numpy"])
+@pytest.mark.parametrize("enc", ["lance-miniblock", "lance-fullzip", "parquet", "arrow",
+                                 "lance", "lance-numpy"])
 def test_dataset_take_matches_single_file(enc):
     def case(m, log):
         table, n = _ds_table(m), 2000
         if enc == "lance-numpy":
             opts = m.WriteOptions("lance", decode="numpy")
+        elif enc in ("parquet", "arrow"):
+            opts = m.WriteOptions(enc)
         else:
             opts = m.WriteOptions(enc, decode="pallas" if m is REF else "device")
         files = m.write_fragments(table, 4, opts)
@@ -1236,7 +1226,7 @@ def test_file_reader_injection_validation():
 
 def test_retriever_over_dataset():
     def case(m, log):
-        emb = _embeddings(m, 900, seed=3)
+        emb = m.synth.scenario("embeddings", 900)
         r = m.Retriever(m.write_fragments({"embedding": emb}, 3, m.WriteOptions("lance")),
                         "embedding", store="tiered")
         ids = np.array([5, 299, 300, 899, 450])
@@ -1280,8 +1270,8 @@ def test_phases_hurt_more_on_s3():
             fr.take("c", rows)
             return fr.io_stats()
 
-        deep = stats_for(m.WriteOptions("lance-fullzip"))
-        shallow = stats_for(m.WriteOptions("lance-miniblock"))
+        deep = stats_for(m.WriteOptions("arrow"))
+        shallow = stats_for(m.WriteOptions("lance-fullzip"))
         assert deep.max_phase > shallow.max_phase
         nvme_extra = m.model_time(deep, m.NVME) - m.model_time(shallow, m.NVME)
         s3_extra = m.model_time(deep, m.S3) - m.model_time(shallow, m.S3)
@@ -1341,17 +1331,21 @@ def test_empty_trace_stats():
     lockstep(case)
 
 
-def test_disk_read_bounds_and_copies():
+def test_disk_read_bounds_and_copies(tmp_path):
+    payload = np.arange(64, dtype=np.uint8)
+    fpath = tmp_path / "blob.bin"
+    fpath.write_bytes(payload.tobytes())
+
     def case(m, log):
-        payload = np.arange(64, dtype=np.uint8)
-        disk = m.Disk(payload.copy())
-        for off, size in ((60, 8), (64, 1), (-1, 4), (0, -4)):
-            with pytest.raises(ValueError):
-                disk.read(off, size)
-        got = disk.read(8, 8)
-        np.testing.assert_array_equal(got, payload[8:16])
-        got[:] = 0
-        np.testing.assert_array_equal(disk.read(8, 8), payload[8:16])
-        assert disk.read(64, 0).size == 0
-        log(disk.read(0, 64))
+        for disk in (m.Disk(payload.copy()), m.Disk(path=str(fpath))):
+            for off, size in ((60, 8), (64, 1), (-1, 4), (0, -4)):
+                with pytest.raises(ValueError):
+                    disk.read(off, size)
+            got = disk.read(8, 8)
+            np.testing.assert_array_equal(got, payload[8:16])
+            got[:] = 0
+            np.testing.assert_array_equal(disk.read(8, 8), payload[8:16])
+            assert disk.read(64, 0).size == 0
+            log((len(disk), disk.read(0, 64)))
+            log(disk.read_gather([60, 0, 8], [4, 2, 0]))
     lockstep(case)

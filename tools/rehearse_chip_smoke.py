@@ -22,7 +22,11 @@ a run on the card:
 * the dataset, the search, the gather's streams, the tiered takes, the
   sweeps and the L2 flush are shrunk, and the serving path runs the serve
   bench's smoke size (96 requests; its cache, half of ``emb``, and its
-  appends, a quarter fragment, shrink with the dataset).
+  appends, a quarter fragment, shrink with the dataset); the paper path's
+  types, struct and nesting rows take 16 rows twice at a few thousand rows
+  or fewer, the loader reads 64 short documents, and the KV pool holds 256
+  blocks for 8 requests over 4 decode steps (81,920-byte rows as on the
+  card).
 
 Every number it prints is a CPU number under the script's device names, so
 none of them is a measurement.  It exits with the script's code.
@@ -67,6 +71,19 @@ SHRINK = (
     ("TIERED_SCAN_CHUNK = 64 << 10", "TIERED_SCAN_CHUNK = 256"),
     ("SERVE_REQUESTS, SERVE_RATE, SERVE_ROWS, SERVE_QD = 1500, 200.0, 32, 32",
      "SERVE_REQUESTS, SERVE_RATE, SERVE_ROWS, SERVE_QD = 96, 200.0, 32, 32"),
+    ('PAPER_ROWS = {"scalar": 8_388_608, "string": 4_194_304, "scalar-list": 1_677_722,\n'
+     '              "string-list": 838_861, "vector": 21_845, "vector-list": 4_369,\n'
+     '              "image": 3_277, "image-list": 655}',
+     'PAPER_ROWS = {"scalar": 4096, "string": 2048, "scalar-list": 512, "string-list": 256,\n'
+     '              "vector": 64, "vector-list": 24, "image": 24, "image-list": 20}'),
+    ("TAKE_N, TAKE_REPEATS = 256, 3", "TAKE_N, TAKE_REPEATS = 16, 2"),
+    ("STRUCT_ROWS, STRUCT_FIELDS = 1 << 20, 5", "STRUCT_ROWS, STRUCT_FIELDS = 1 << 10, 5"),
+    ("NEST_ROWS, NEST_DEPTHS = 1 << 20, (0, 1, 2, 3)", "NEST_ROWS, NEST_DEPTHS = 1 << 10, (0, 1, 2, 3)"),
+    ("LOADER_DOCS, LOADER_VOCAB, LOADER_SEQ, LOADER_BATCH = 16384, 49152, 2048, 8",
+     "LOADER_DOCS, LOADER_VOCAB, LOADER_SEQ, LOADER_BATCH = 64, 49152, 64, 8"),
+    ("KV_FEATURES, KV_BLOCKS = 5 * 64, 16384", "KV_FEATURES, KV_BLOCKS = 5 * 64, 256"),
+    ("KV_REQUESTS, KV_PROMPT = 256, (512, 8192)", "KV_REQUESTS, KV_PROMPT = 8, (1, 300)"),
+    ("KV_STEPS, KV_REPLACE_AT = 32, 16", "KV_STEPS, KV_REPLACE_AT = 4, 2"),
 )
 
 
