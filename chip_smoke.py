@@ -75,7 +75,30 @@ Phases, one JSON object per line on stdout:
    time per request on both routes with the kernels' and copies' share, and
    the trace's event counts (exported to ``build/serve_trace.json``); no
    fallback may be counted, in ``ops.fallbacks`` or in the tracer;
-8. the paper path (``paper``): the JAX package's random-access figures
+8. the LM serving path (``lm``): ``Retriever(decode="device")`` fetches
+   launch/serve.py's 8 x 8 random ``emb`` rows (against its numpy twin and
+   the source, identical IO; ``fullzip_gather``), then smollm-360m at full
+   width and depth (32 layers, 361,821,120 parameters, bf16, drawn from a
+   ``torch.Generator`` seeded by ``--seed``) serves 8 prompts of 2,048
+   tokens from ``synth.token_corpus`` (the loader path's batch and
+   seq_len) through ``BatchedEngine``: 32 new tokens after a warm-up.
+   Checks, on the card: the first decode step against the full forward of
+   the prompt plus its token (< 0.06 of max |logit|, tests/test_models.py's
+   bound); 4 decoded tokens of 2 requests replayed through full prefills,
+   each within 0.02 of max |logit| of the row's max; a 64-token prefill
+   against the same weights in float32 on the CPU (< 0.06); the blockwise
+   attention against ``scaled_dot_product_attention`` at the prefill's
+   shape (< 0.02; timed as a comparison only).  Then every config of
+   ``ARCHS`` at reduced_config in bf16 (prefill + 8 decode steps through
+   ``BatchedEngine``; decode against the full forward and the card against
+   float32 on the CPU, both < 0.06; MoE configs on pinned routes, see
+   ``PinnedRouting``) and ``launch.serve.run`` at its defaults.  It prints
+   the prefill's ms, the decode step's mean, p50 and max ms (CUDA events)
+   and host enqueue ms, the kernels one decode step launches
+   (``torch.profiler``), tokens/s, peak memory and the bounds: a decode step
+   reads every weight and the requests' KV once at 3.35 TB/s, a prefill
+   does 2 N tokens FLOPs at 989 TFLOP/s (bf16 dense tensor peak);
+9. the paper path (``paper``): the JAX package's random-access figures
    (``benchmarks/run.py`` fig10, fig11, fig18) on the port.  Each of the
    eight §6.1 types from ``synth.paper_type(seed=1)`` at about 64 MiB of
    values is written as ``lance`` (device route), ``parquet`` (8 KiB pages)
@@ -91,13 +114,13 @@ Phases, one JSON object per line on stdout:
    device route's kernels, copies, launches and host fallbacks per type
    (var-width leaves and values over 31 bits decode on the host, as in the
    JAX package);
-9. the loader path (``loader``): smollm-360m's training input.  A token
+10. the loader path (``loader``): smollm-360m's training input.  A token
    file of 16,384 documents (``synth.token_corpus``, vocab 49,152, about 42M
    tokens) is written for the device route and for the numpy route; a
    ``TokenLoader`` over each yields 64 batches of 8 x 2,049 int32 tokens.
    The batches and ``batch_for_step`` must be equal; it prints each route's
    scan wall, tokens/s and the kernels' and copies' share;
-10. the kv path (``kv``): one layer's K pool of smollm-360m in a
+11. the kv path (``kv``): one layer's K pool of smollm-360m in a
    ``PagedKVCache`` (5 KV heads x 64 bf16 features: 81,920-byte block rows;
    16,384 blocks, 1.25 GiB).  256 requests with prompts of 512-8,192 tokens
    are prefilled, then 32 decode steps append one token to every request
@@ -106,11 +129,11 @@ Phases, one JSON object per line on stdout:
    a mirror of the appended values rounded to bf16 on the host, and the
    plain gather of the same store (tolerance 0); it prints gathers, bytes,
    wall and the kernel's share;
-11. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
+12. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
    ``kernel_bench`` size), unpacked on the card and checked against the
    packed values;
-12. each kernel at the largest input each path gave it (``take``, ``search``,
-   ``tiered``, ``serve``, ``paper``, ``loader``, ``kv`` and ``bitunpack``;
+13. each kernel at the largest input each path gave it (``take``, ``search``,
+   ``tiered``, ``serve``, ``lm``, ``paper``, ``loader``, ``kv`` and ``bitunpack``;
    ``ivf_topk`` per search step: the centroid ``probe``
    and the ``candidates`` of each batch size), one ``kernels`` entry each:
    ``ms``, the mean of 20 back-to-back launches by CUDA events, host launch
@@ -125,7 +148,7 @@ Phases, one JSON object per line on stdout:
    is larger); and one more ``bitunpack`` row at 2**24 values of 11 bits
    (``"step": "2**24"``, no launches on any path: it shows whether the
    kernel reaches the bandwidth regime);
-13. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+14. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Between the sweep and the dataset, ``gather_streams`` holds the gather's
 per-launch work counter to its contract: the take shape's gather (16,429
@@ -164,12 +187,18 @@ from repro_torch.dataset import (DatasetReader, DatasetWriter, IvfIndex,  # noqa
                                  write_fragments)
 from repro_torch.dataset import ivf as ivf_module  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.configs import ARCHS, get_config, reduced_config  # noqa: E402
+from repro_torch.configs.base import ShapeCfg  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import LMModel, build_model, model_flops, param_counts  # noqa: E402
+from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models.attention import flash_attention  # noqa: E402
 from repro_torch.core.io_sim import (NVME, S3, Blackout, CorrelatedFault,  # noqa: E402
                                      Degradation, TransientErrors)
 from repro_torch.obs import (BurnWindow, MetricsPlane, Shedder, SLObjective,  # noqa: E402
                              SLOMonitor, Tracer)
-from repro_torch.serve import (BLOCK, FaultScenario, PagedKVCache, Retriever,  # noqa: E402
-                               TenantSpec, ZipfWorkload, drive, run_scenario,
+from repro_torch.serve import (BLOCK, BatchedEngine, FaultScenario, PagedKVCache,  # noqa: E402
+                               Retriever, TenantSpec, ZipfWorkload, drive, run_scenario,
                                tenant_summary)
 from repro_torch.store import (DrainRecord, EventLoop, IOScheduler, QoS,  # noqa: E402
                                RetryPolicy, TieredStore, build_job)
@@ -240,6 +269,17 @@ LOADER_BATCHES, LOADER_STEP = 64, 100
 KV_FEATURES, KV_BLOCKS = 5 * 64, 16384
 KV_REQUESTS, KV_PROMPT = 256, (512, 8192)
 KV_STEPS, KV_REPLACE_AT = 32, 16
+# the lm path: smollm-360m (configs :29) at full width and depth in bf16,
+# LM_BATCH prompts of LM_PROMPT tokens (the loader path's batch and seq_len)
+# and LM_NEW new tokens; first launch/serve.py's --batch x --neighbors rows
+# of emb; the trajectory replay, the host check and the family sweep sizes
+LM_ARCH, LM_REDUCED = "smollm-360m", False
+LM_BATCH, LM_PROMPT, LM_NEW, LM_NEIGHBORS = 8, 2048, 32, 8
+LM_PARAMS = (361_758_720, 361_821_120)  # param_counts; the module's (+ 65 norm scales)
+LM_REPLAY, LM_REPLAY_TOKENS, LM_HOST_PROMPT = 2, 4, 64
+LM_SWEEP_B, LM_SWEEP_S, LM_SWEEP_NEW = 2, 32, 8
+LM_BOUND = 0.06  # tests/test_models.py:110's prefill/decode bound
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 RTOL = 1e-6
 KERNEL_REPLACES = {
     "miniblock_decode": "src/repro/kernels/miniblock_decode.py:107",
@@ -1426,6 +1466,374 @@ def shed_drill():
     return chaos_cell(on, trips=sh.trips, unshed_makespan_ms=off.makespan * 1e3)
 
 
+class StepTimer:
+    """Times a model's ``prefill`` and ``decode_step`` by CUDA events (the
+    device's timeline, host launch path included) and by the host clock
+    around each call without a synchronise (the time to enqueue it).  Keeps
+    the first decode step's logits.  ``restore`` unwraps the model."""
+
+    NAMES = ("prefill", "decode_step")
+
+    def __init__(self, model):
+        self.model = model
+        self.reset()
+        for name in self.NAMES:
+            setattr(model, name, self._timed(name, getattr(model, name)))
+
+    def reset(self):
+        self.events = {n: [] for n in self.NAMES}
+        self.host_ms = {n: [] for n in self.NAMES}
+        self.first_logits = None
+
+    def _timed(self, name, fn):
+        def timed(*args, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            h = time.perf_counter()
+            s.record()
+            out = fn(*args, **kw)
+            e.record()
+            self.host_ms[name].append((time.perf_counter() - h) * 1e3)
+            self.events[name].append((s, e))
+            if name == "decode_step" and self.first_logits is None:
+                self.first_logits = out[0].clone()
+            return out
+
+        return timed
+
+    def ms(self, name):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events[name]]
+
+    def restore(self):
+        for name in self.NAMES:
+            delattr(self.model, name)
+
+
+def rel_err(want, got) -> float:
+    """max |want - got| / max |want|, in float32 on the host."""
+    w, g = want.float().cpu(), got.float().cpu()
+    return float((w - g).abs().max() / w.abs().max())
+
+
+def lm_batch(cfg, B, S, rng):
+    """Tokens in [1, vocab), and the vlm's vision embeddings or the audio
+    model's frames, as host arrays."""
+    b = {"tokens": rng.integers(1, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        b["vision_embeds"] = rng.standard_normal((B, cfg.n_vision_tokens, cfg.d_vision))
+    if cfg.family == "audio":
+        b["frames"] = rng.standard_normal((B, S, cfg.d_audio))
+    return b
+
+
+def on_device(batch, device, dtype):
+    return {k: torch.as_tensor(v, device=device) if k == "tokens"
+            else torch.as_tensor(v, device=device).to(dtype) for k, v in batch.items()}
+
+
+def host_twin(model, cfg):
+    """The model's weights in float32 on the CPU: the explicit host
+    reference of the card-against-host checks."""
+    host = LMModel(dataclasses.replace(cfg, dtype="float32"), device="cpu")
+    host.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    return host
+
+
+def lm_fetch(table, files, rng, probe):
+    """launch/serve.py's retrieval at its --batch x --neighbors: the device
+    route against its numpy twin; rows equal the source's."""
+    ids = rng.integers(0, ROWS, LM_BATCH * LM_NEIGHBORS)
+    dev, host = (Retriever(files, "emb", decode=d) for d in ("device", "numpy"))
+    probe.collect()
+    s = time.perf_counter()
+    got, _ = dev.fetch(ids)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - s) * 1e3
+    times = probe.collect()
+    want, _ = host.fetch(ids)
+    check(same_buffers(want, got) and same_values(table["emb"].take(ids), got),
+          "lm: fetched rows differ from the source")
+    check(io_of(dev.reader) == io_of(host.reader), "lm: the fetch's IO or modelled time "
+          "differs between the routes")
+    return {"rows": len(ids), "row_bytes": 384 * 4, "wall_ms": wall_ms,
+            "kernel_ms": probe.kernel_ms(times)["fullzip_gather"],
+            "copy_ms": times.get("to_device", 0.0) + times.get("to_host", 0.0),
+            "n_iops": dev.reader.io_stats().n_iops,
+            "modelled_io_ms": dev.modelled_time() * 1e3}
+
+
+def lm_attention_ms(cfg, dev):
+    """The blockwise attention at the prefill's shape against
+    ``scaled_dot_product_attention`` (keys and values repeated to the query
+    heads outside the timing): times, and how far the two outputs are."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (torch.randn((LM_BATCH, LM_PROMPT, h, hd), generator=g, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16) for h in (H, Hkv, Hkv))
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for t in (k, v))
+    qt = q.transpose(1, 2)
+    ours = flash_attention(q, k, v, causal=True)
+    lib = torch.nn.functional.scaled_dot_product_attention(qt, kr, vr, is_causal=True)
+    err = rel_err(lib.transpose(1, 2), ours)
+    out = {"shape": [LM_BATCH, LM_PROMPT, H, Hkv, hd], "blockwise_ms": time_ms(
+        lambda: flash_attention(q, k, v, causal=True), reps=5, warmup=1),
+        "sdpa_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kr, vr, is_causal=True), reps=5, warmup=1),
+        "rel_err_vs_sdpa": err}
+    check(err < 2e-2, f"lm: the blockwise attention differs from SDPA by {err}")
+    return out
+
+
+def lm_decode_kernels(model, capacity, dev):
+    """Kernels the card runs in one decode step of LM_BATCH requests, counted
+    by ``torch.profiler`` (None when it records no device activity)."""
+    toks = torch.ones((LM_BATCH, 1), dtype=torch.int32, device=dev)
+    _, cache = model.prefill({"tokens": toks.expand(LM_BATCH, 8)}, capacity=capacity)
+    model.decode_step(cache, toks)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=list(torch.profiler.supported_activities())) as prof:
+        model.decode_step(cache, toks)
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+    return n or None
+
+
+class PinnedRouting:
+    """Pins the MoE layers' expert choices of one forward to those another
+    forward made, so that two runs in different precisions are compared on
+    the same routes.  ``record`` keeps the expert ids of every routing call
+    in order; ``replay`` hands them back, one call at a time, each as
+    ``(B, S, k)`` ids reshaped to the call's tokens (``join`` concatenates
+    recorded calls along S first), with gates renormalised from the
+    replaying run's own router probabilities, and counts the tokens whose
+    own top-k set differs (``moved``).  A router's top-2 that sit an ulp
+    apart change places between bfloat16 and float32 (the JAX package's own
+    bf16 and f32 prefills of reduced deepseek and grok disagree so in 3-4
+    of 20 seeds), and a moved token changes its logits by up to half their
+    range."""
+
+    def __init__(self):
+        self.recorded, self.queue, self.moved = [], None, 0
+        self.real = moe_module.routing
+
+    def _routing(self, x2d, router_w, n_experts, top_k):
+        ids, gates, aux = self.real(x2d, router_w, n_experts, top_k)
+        if self.queue is None:
+            self.recorded.append(ids.clone())
+            return ids, gates, aux
+        pinned = self.queue.pop(0).reshape(-1, top_k).to(ids.device)
+        own = torch.sort(ids, dim=-1).values
+        self.moved += int((own != torch.sort(pinned, dim=-1).values).any(-1).sum())
+        probs = torch.softmax(torch.matmul(x2d.float(), router_w), dim=-1)
+        g = probs.gather(1, pinned)
+        return pinned, g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), aux
+
+    def record(self):
+        self.recorded, self.queue = [], None
+        moe_module.routing = self._routing
+        return self
+
+    def replay(self, calls):
+        self.queue, self.moved = list(calls), 0
+        moe_module.routing = self._routing
+        return self
+
+    def restore(self):
+        moe_module.routing = self.real
+
+    @staticmethod
+    def join(a, b, B):
+        """Per layer, the ids of calls ``a`` then ``b`` along the sequence."""
+        return [torch.cat([x.reshape(B, -1, x.shape[-1]), y.reshape(B, -1, y.shape[-1])], 1)
+                for x, y in zip(a, b)]
+
+
+def lm_family_sweep(seed, dev):
+    """Every config of ARCHS at reduced_config in bf16 on the card: prefill
+    + LM_SWEEP_NEW decode steps through BatchedEngine, the card's decode
+    step against its own full forward, and its prefill against float32 on
+    the CPU (same weights).  MoE configs compare on pinned routes
+    (``PinnedRouting``): the full forward takes the prefill's and the decode
+    step's expert choices, the host the card's; the unpinned errors and the
+    tokens whose own choice moved are printed beside them."""
+    rng = np.random.default_rng(seed + 31)
+    out = {}
+    for arch in ARCHS:
+        cfg = reduced_config(arch)
+        moe = cfg.moe is not None
+        model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+        batch = lm_batch(cfg, LM_SWEEP_B, LM_SWEEP_S, rng)
+        card = on_device(batch, dev, torch.bfloat16)
+        gen = BatchedEngine(model, max_new=LM_SWEEP_NEW).generate(card)
+        check(gen.tokens.shape == (LM_SWEEP_B, LM_SWEEP_NEW) and (gen.tokens >= 0).all()
+              and (gen.tokens < cfg.vocab).all(), f"lm {arch}: generated tokens out of range")
+        pin = PinnedRouting()
+        pin.record()
+        last, cache = model.prefill(card, capacity=LM_SWEEP_S + 8)
+        routes_prefill = pin.recorded
+        pin.record()
+        nxt = last.argmax(-1)[:, None].to(torch.int32)
+        step, _ = model.decode_step(cache, nxt)
+        routes_step = pin.recorded
+        pin.restore()
+        full_batch = {**card, "tokens": torch.cat([card["tokens"], nxt], 1)}
+        host = host_twin(model, cfg)
+        host_batch = on_device(batch, "cpu", torch.float32)
+        want, _ = host.prefill(host_batch)
+        errs = {"prefill_vs_decode": rel_err(model(full_batch)[:, -1], step),
+                "card_vs_cpu_f32": rel_err(want, last)}
+        rec = {"family": cfg.family}
+        if moe:
+            rec["unpinned"] = dict(errs)
+            pin.replay(PinnedRouting.join(routes_prefill, routes_step, LM_SWEEP_B))
+            errs["prefill_vs_decode"] = rel_err(model(full_batch)[:, -1], step)
+            rec["moved_tokens"] = {"full_forward": pin.moved}
+            pin.replay(routes_prefill)
+            want, _ = host.prefill(host_batch)
+            errs["card_vs_cpu_f32"] = rel_err(want, last)
+            rec["moved_tokens"]["host"] = pin.moved
+            pin.restore()
+        out[arch] = {**rec, **errs}
+        for name, e in errs.items():
+            check(np.isfinite(e) and e < LM_BOUND, f"lm {arch}: {name} {e} >= {LM_BOUND}")
+        del model, host
+    return out
+
+
+def lm_path_phase(table, files, seed, probe):
+    """The LM serving path (see the module docstring, item 8)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 29)
+    ops.reset_counts()  # the lm path starts here
+    t = {}
+    s = time.perf_counter()
+    fetch = lm_fetch(table, files, rng, probe)
+    t["fetch_s"] = time.perf_counter() - s
+
+    # the model: full width and depth, bf16, from the seed
+    cfg = reduced_config(LM_ARCH) if LM_REDUCED else get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    s = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    t["init_s"] = time.perf_counter() - s
+    held = sum(p.numel() for p in model.parameters())
+    check((param_counts(cfg)[0], held) == LM_PARAMS,
+          f"lm: {param_counts(cfg)[0]} counted / {held} held parameters, not {LM_PARAMS}")
+    check(all(p.device.type == "cuda" for p in model.parameters()), "lm: a weight is off the card")
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+
+    # prompts: the loader path's batch and seq_len from synth.token_corpus
+    corpus = synth.token_corpus(2 * LM_BATCH, LM_PROMPT, cfg.vocab, seed=seed)
+    flat = corpus.child.values
+    check(len(flat) >= LM_BATCH * LM_PROMPT, "lm: the corpus is short of the prompts")
+    prompts = flat[:LM_BATCH * LM_PROMPT].reshape(LM_BATCH, LM_PROMPT).astype(np.int32)
+
+    # generation: one warm-up (cuBLAS handles, the allocator), then timed
+    engine = BatchedEngine(model, max_new=LM_NEW)
+    timer = StepTimer(model)
+    engine.generate({"tokens": prompts}, n_new=2)
+    timer.reset()
+    s = time.perf_counter()
+    out = engine.generate({"tokens": prompts}, n_new=LM_NEW)
+    gen_s = time.perf_counter() - s
+    prefill_ms, decode_ms = timer.ms("prefill")[0], timer.ms("decode_step")
+    host_decode_ms = timer.host_ms["decode_step"]
+    first = timer.first_logits
+    timer.restore()
+    peak = torch.cuda.max_memory_allocated()
+    check(out.tokens.shape == (LM_BATCH, LM_NEW) and (out.tokens >= 0).all()
+          and (out.tokens < cfg.vocab).all(), "lm: generated tokens out of shape or range")
+
+    # prefill and decode agree: the first decode step against the full
+    # forward of the prompt plus the token it consumed
+    s = time.perf_counter()
+    tok0 = torch.from_numpy(out.tokens[:, :1].copy()).to(dev)
+    full, _ = model.prefill({"tokens": torch.cat([torch.from_numpy(prompts).to(dev), tok0], 1)})
+    err_pd = rel_err(full, first)
+    check(err_pd < LM_BOUND, f"lm: decode step vs full forward {err_pd} >= {LM_BOUND}")
+    del full
+    # the trajectory replays: each decoded token within 0.02 max|logit| of the max
+    replay = []
+    for r in range(LM_REPLAY):
+        for j in range(LM_REPLAY_TOKENS):
+            seq = np.concatenate([prompts[r], out.tokens[r, :j]])[None].astype(np.int32)
+            logits, _ = model.prefill({"tokens": torch.from_numpy(seq).to(dev)})
+            lg = logits[0].float()
+            gap = float(lg.max() - lg[int(out.tokens[r, j])]) / float(lg.abs().max())
+            replay.append(gap)
+            check(gap <= 0.02, f"lm: request {r} token {j} is {gap} of max|logit| below the max")
+    t["checks_s"] = time.perf_counter() - s
+
+    # the card against the host: float32 weights on the CPU, a 64-token prompt
+    s = time.perf_counter()
+    host = host_twin(model, cfg)
+    p = prompts[:1, :LM_HOST_PROMPT]
+    card_l, _ = model.prefill({"tokens": torch.from_numpy(p.copy()).to(dev)})
+    host_l, _ = host.prefill({"tokens": torch.from_numpy(p.copy())})
+    err_host = rel_err(host_l, card_l)
+    check(err_host < LM_BOUND, f"lm: card vs CPU float32 {err_host} >= {LM_BOUND}")
+    del host
+    t["host_s"] = time.perf_counter() - s
+
+    attention = lm_attention_ms(cfg, dev)
+    capacity = engine._capacity(LM_PROMPT, LM_NEW)
+    kernels_per_step = lm_decode_kernels(model, capacity, dev)
+    del model, engine, timer, first
+    torch.cuda.empty_cache()
+
+    s = time.perf_counter()
+    families = lm_family_sweep(seed, dev)
+    t["families_s"] = time.perf_counter() - s
+    emit({"phase": "lm_families", "batch": LM_SWEEP_B, "prompt": LM_SWEEP_S,
+          "new": LM_SWEEP_NEW, "bound": LM_BOUND, "dtype": "bfloat16", "archs": families})
+
+    # the entry point itself, at its defaults
+    s = time.perf_counter()
+    served = launch_serve.run(device="cuda", verbose=False)
+    t["serve_s"] = time.perf_counter() - s
+    check(served["generate"]["tokens"].shape == (4, 16), "lm: launch.serve.run's tokens")
+    emit({"phase": "lm_serve", "fetch": served["fetch"],
+          **{k: v for k, v in served["generate"].items() if k != "tokens"}})
+
+    launches = dict(ops.launches)  # the lm path ends here
+    fallbacks = dict(ops.fallbacks)
+    check(launches["fullzip_gather"] > 0, "fullzip_gather never launched on the lm path")
+    check(not fallbacks, f"lm: fell back to the host: {fallbacks}")
+
+    # bounds: a decode step reads every weight and each request's valid KV
+    # once; a prefill does model_flops' 2 N tokens on the bf16 tensor peak
+    L, F = cfg.n_layers, cfg.n_kv_heads * cfg.head_dim
+    kv_read = [L * 2 * LM_BATCH * (LM_PROMPT + i + 1) * F * 2 for i in range(LM_NEW)]
+    decode_bound_ms = float(np.mean([(weight_bytes + b) / HBM_BYTES_PER_S * 1e3
+                                     for b in kv_read]))
+    flops = model_flops(cfg, ShapeCfg("lm_prefill", "prefill", LM_PROMPT, LM_BATCH))
+    attn_flops = 4 * LM_BATCH * cfg.n_heads * cfg.head_dim * LM_PROMPT * (LM_PROMPT + 1) // 2 * L
+    dec = np.asarray(decode_ms)
+    emit({"phase": "lm", "arch": cfg.name, "reduced": LM_REDUCED, "dtype": cfg.dtype,
+          "parameters": held, "param_counts": param_counts(cfg)[0],
+          "weight_bytes": weight_bytes, "peak_bytes": peak - base, "fetch": fetch,
+          "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW, "cache_capacity": capacity,
+          "prefill_ms": prefill_ms,
+          "decode_ms": {"mean": float(dec.mean()), "p50": float(np.median(dec)),
+                        "max": float(dec.max()), "steps": len(dec)},
+          "decode_host_enqueue_ms": float(np.mean(host_decode_ms)),
+          "decode_kernels_per_step": kernels_per_step,
+          "generate_s": gen_s, "tokens_per_s": LM_BATCH * LM_NEW / gen_s,
+          "bounds": {"decode_step_ms": decode_bound_ms, "weights_only_ms":
+                     weight_bytes / HBM_BYTES_PER_S * 1e3, "hbm_bytes_per_s": HBM_BYTES_PER_S,
+                     "prefill_ms": flops / BF16_FLOPS_PER_S * 1e3, "prefill_flops": flops,
+                     "attention_flops": attn_flops, "bf16_flops_per_s": BF16_FLOPS_PER_S},
+          "attention": attention,
+          "checks": {"prefill_vs_decode": err_pd, "replay_max_gap": max(replay),
+                     "card_vs_cpu_f32_64_tokens": err_host, "bound": LM_BOUND},
+          "seconds": t, "launches": launches, "fallbacks": fallbacks})
+    return launches
+
+
+
 def paper_encodings(tname):
     """The encodings each type is written in (label, options): Lance on the
     device route (its numpy twin reads the same file), Parquet with 8 KiB
@@ -1825,8 +2233,8 @@ def kernel_case(name, a, kw):
         "operations": n_vals, "ops_per_s": INT_OPS_PER_S}
 
 
-PATH_ORDER = {"take": 0, "search": 1, "tiered": 2, "serve": 3, "paper": 4, "loader": 5,
-              "kv": 6, "bitunpack": 7}
+PATH_ORDER = {"take": 0, "search": 1, "tiered": 2, "serve": 3, "lm": 4, "paper": 5,
+              "loader": 6, "kv": 7, "bitunpack": 8}
 
 
 def measure_phase(probe, smallest, launches, sweep, rng):
@@ -1919,6 +2327,8 @@ def main() -> int:
     launches["tiered"] = timed("tiered", tiered_path_phase, table, files, rng, probe)
     probe.path = "serve"
     launches["serve"] = timed("serve", serve_path_phase, table, files, args.seed, probe)
+    probe.path = "lm"
+    launches["lm"] = timed("lm", lm_path_phase, table, files, args.seed, probe)
     del table, files
     probe.path = "paper"
     launches["paper"] = timed("paper", paper_path_phase, args.seed, probe)

@@ -1,0 +1,152 @@
+"""Shared model building blocks.
+
+The port's copy of the reference's ``models/common.py``.  Parameters live in
+``nn.Module``s whose names mirror the reference's param tree (a linear
+layer's ``w`` is ``(d_in, d_out)`` and its optional ``b`` is ``(d_out,)``, a
+norm's ``scale``, an embedding's ``w``), so ``models/convert.py`` maps one
+onto the other by name.  The ``*_init_`` functions draw the reference's
+distributions from an explicit ``torch.Generator``; the values differ from
+JAX's, the distributions do not.
+
+The reference's ``PartitionSpec`` trees are not carried: the port shards
+nothing yet (ROADMAP.md, Queue 1 item 8c).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+__all__ = [
+    "Dense", "RMSNorm", "Embed", "MLP", "dense_init_", "embed_init_", "rmsnorm_init_",
+    "normal_", "rmsnorm", "rope_freqs", "apply_rope", "dtype_of", "mlp_apply",
+]
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def normal_(t: torch.Tensor, generator: torch.Generator, scale: float) -> None:
+    """Fill ``t`` with N(0, 1) * ``scale`` drawn in float32 on the
+    generator's device, then cast to ``t``'s dtype (the reference draws in
+    float32 and casts)."""
+    draw = torch.randn(tuple(t.shape), generator=generator, dtype=torch.float32,
+                       device=generator.device)
+    with torch.no_grad():
+        t.copy_(draw * scale)
+
+
+def dense_init_(layer: "Dense", generator: torch.Generator,
+                scale: Optional[float] = None) -> None:
+    """The reference's ``dense_init``: w ~ N(0, 1/d_in) unless ``scale``; b = 0."""
+    d_in = layer.w.shape[0]
+    normal_(layer.w, generator, scale if scale is not None else 1.0 / (d_in ** 0.5))
+    if layer.b is not None:
+        with torch.no_grad():
+            layer.b.zero_()
+
+
+def embed_init_(layer: "Embed", generator: torch.Generator) -> None:
+    normal_(layer.w, generator, 0.02)
+
+
+def rmsnorm_init_(norm: "RMSNorm") -> None:
+    with torch.no_grad():
+        norm.scale.fill_(1.0)
+
+
+class Dense(nn.Module):
+    """A linear layer stored as the reference stores it: ``w`` (d_in, d_out)."""
+
+    def __init__(self, d_in: int, d_out: int, dtype, device, bias: bool = False):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(d_in, d_out, dtype=dtype, device=device),
+                              requires_grad=False)
+        self.b = (nn.Parameter(torch.empty(d_out, dtype=dtype, device=device),
+                               requires_grad=False) if bias else None)
+
+    def init_(self, generator: torch.Generator) -> None:
+        dense_init_(self, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x, self.w)
+        if self.b is not None:
+            y = y + self.b
+        return y
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, dtype, device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(d, dtype=dtype, device=device),
+                                  requires_grad=False)
+
+    def init_(self, generator: torch.Generator) -> None:
+        rmsnorm_init_(self)
+
+    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        return rmsnorm(x, self.scale, eps)
+
+
+class Embed(nn.Module):
+    def __init__(self, vocab: int, d: int, dtype, device):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(vocab, d, dtype=dtype, device=device),
+                              requires_grad=False)
+
+    def init_(self, generator: torch.Generator) -> None:
+        embed_init_(self, generator)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.w[tokens]
+
+
+class MLP(nn.Module):
+    """SwiGLU FFN ``wi``/``wg``/``wo``: the reference's ``init_mlp``
+    (``models/transformer.py``); MoE's shared experts are one too."""
+
+    def __init__(self, d: int, ff: int, dtype, device):
+        super().__init__()
+        self.wi = Dense(d, ff, dtype, device)
+        self.wg = Dense(d, ff, dtype, device)
+        self.wo = Dense(ff, d, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp_apply(self, x)
+
+
+def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    a = torch.matmul(x, p.wi.w)
+    g = torch.matmul(x, p.wg.w)
+    return torch.matmul(torch.nn.functional.silu(g) * a, p.wo.w)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """Normalise in float32, cast back to the activation dtype, *then*
+    multiply by ``scale`` in that dtype: two roundings, as the reference."""
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+def rope_freqs(head_dim: int, theta: float,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) -> cos/sin of shape (..., head_dim//2), f32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    inv = 1.0 / (torch.tensor(theta, dtype=torch.float32, device=positions.device) ** exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., H, head_dim); cos/sin broadcastable to (..., 1, head_dim//2).
+    Half-split rotation (not interleaved), in f32, cast back."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,340 @@
+"""Model assembly for every assigned architecture family: the serving half.
+
+The port's copy of the reference's ``models/transformer.py``: one generic LM
+covering dense / MoE / MLA attention, Mamba2 (SSM), the Zamba2-style hybrid
+(mamba backbone + one weight-tied shared attention block), Llama-3.2-Vision
+style gated cross-attention layers and a Seamless-style encoder-decoder.
+
+Where the reference stacks each family's layers on a leading ``(L, ...)``
+axis and runs them with ``lax.scan``, the port keeps one ``nn.Module`` per
+layer in an ``nn.ModuleList`` and loops over them; the vlm's
+``(n_cross, period - 1, ...)`` self layers are a list of lists.  Parameter
+names mirror the reference's tree (``layers.3.attn.q.w``, ``embed.w``;
+``models/convert.py`` maps one onto the other).
+
+Caches mirror the reference's too, with per-layer lists in place of stacked
+arrays: ``{"layers": [{"k", "v"}, ...], "length": int}`` for dense and moe
+(``{"ckv", "kpe"}`` under MLA, ``{"state", "conv"}`` for ssm), ``{"mamba",
+"shared", "length"}`` for hybrid and ``{"self", "cross", "length"}`` for vlm
+and audio.  ``length`` is a host int, the global decode position.  A prefill
+preallocates each attention cache to ``capacity`` positions (the reference's
+engine pads its cache after the prefill instead); ``decode_step`` writes into
+the cache in place and returns it, the way the reference's jitted step
+donates its cache.
+
+API (used by serve/engine and launch/serve):
+
+* ``init(generator)``                       -> self (the reference's distributions)
+* ``prefill(batch, capacity=None)``        -> (last_logits, cache)
+* ``decode_step(cache, tokens)``           -> (last_logits, cache)
+* ``model(batch)``                         -> every position's logits
+* ``loss_fn``: training waits for ROADMAP.md, Queue 1 item 8b, and raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels import ops
+from .attention import GQA, MLA, CrossAttention
+from .common import MLP, Dense, Embed, RMSNorm, dtype_of, mlp_apply
+from .moe import MoE
+from .ssm import Mamba2
+
+__all__ = ["LMModel", "MLP", "mlp_apply"]
+
+_TRAINING = "training is not ported yet (ROADMAP.md, Queue 1 item 8b)"
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+class DenseLayer(nn.Module):
+    """``n1``, ``attn`` (GQA, MLA or gated cross-attention), ``n2``, ``mlp``."""
+
+    def __init__(self, cfg, dtype, device, cross: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.n1 = RMSNorm(cfg.d_model, dtype, device)
+        if cross:
+            self.attn = CrossAttention(cfg, dtype, device)
+        elif cfg.mla is not None:
+            self.attn = MLA(cfg, dtype, device)
+        else:
+            self.attn = GQA(cfg, dtype, device)
+        self.n2 = RMSNorm(cfg.d_model, dtype, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+
+    def forward(self, x, positions, mode, cache=None, length=0, capacity=None):
+        eps = self.cfg.norm_eps
+        h, nc = self.attn(self.n1(x, eps), positions, mode, cache, length, capacity)
+        x = x + h
+        x = x + self.mlp(self.n2(x, eps))
+        return x, nc
+
+    def apply_cross(self, x, memory, mode, cache=None):
+        """A cross-attention layer (vlm): attend to ``memory``."""
+        eps = self.cfg.norm_eps
+        h, nc = self.attn(self.n1(x, eps), memory, mode, cache)
+        x = x + h
+        x = x + self.mlp(self.n2(x, eps))
+        return x, nc
+
+
+class MoELayer(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        self.n1 = RMSNorm(cfg.d_model, dtype, device)
+        self.attn = (MLA if cfg.mla is not None else GQA)(cfg, dtype, device)
+        self.n2 = RMSNorm(cfg.d_model, dtype, device)
+        self.moe = MoE(cfg, dtype, device)
+
+    def forward(self, x, positions, mode, cache=None, length=0, capacity=None):
+        eps = self.cfg.norm_eps
+        h, nc = self.attn(self.n1(x, eps), positions, mode, cache, length, capacity)
+        x = x + h
+        m, _ = self.moe(self.n2(x, eps))
+        return x + m, nc
+
+
+class SSMLayer(nn.Module):
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        self.n1 = RMSNorm(cfg.d_model, dtype, device)
+        self.mamba = Mamba2(cfg, dtype, device)
+
+    def forward(self, x, positions, mode, cache=None, length=0, capacity=None):
+        h, nc = self.mamba(self.n1(x, self.cfg.norm_eps), mode, cache)
+        return x + h, nc
+
+
+class DecoderLayer(DenseLayer):
+    """The enc-dec decoder layer: self-attention, ``cross`` attention to the
+    encoder's output (normed by ``nc``), then the FFN."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__(cfg, dtype, device)
+        self.cross = CrossAttention(cfg, dtype, device)
+        self.nc = RMSNorm(cfg.d_model, dtype, device)
+
+    def forward(self, x, positions, mode, enc_out=None, self_cache=None,
+                cross_cache=None, length=0, capacity=None):
+        eps = self.cfg.norm_eps
+        a, ncs = self.attn(self.n1(x, eps), positions, mode, self_cache, length, capacity)
+        x = x + a
+        c, ncc = self.cross(self.nc(x, eps), enc_out, mode, cross_cache)
+        x = x + c
+        x = x + self.mlp(self.n2(x, eps))
+        return x, ncs, ncc
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+
+class LMModel(nn.Module):
+    """One family's LM on ``device`` (CUDA unless the caller names the CPU;
+    raises without a card).  Parameters are allocated uninitialised: call
+    :meth:`init` with a ``torch.Generator``, or load a state dict."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = ops.resolve_device(device)
+        dev, dtype = self.device, dtype_of(cfg)
+        d = cfg.d_model
+        self.embed = Embed(cfg.vocab, d, dtype, dev)
+        self.unembed = None if cfg.tie_embeddings else Dense(d, cfg.vocab, dtype, dev)
+        self.final_norm = RMSNorm(d, dtype, dev)
+
+        fam = cfg.family
+        if fam == "dense":
+            self.layers = nn.ModuleList(DenseLayer(cfg, dtype, dev) for _ in range(cfg.n_layers))
+        elif fam == "moe":
+            self.layers = nn.ModuleList(MoELayer(cfg, dtype, dev) for _ in range(cfg.n_layers))
+        elif fam in ("ssm", "hybrid"):
+            self.layers = nn.ModuleList(SSMLayer(cfg, dtype, dev) for _ in range(cfg.n_layers))
+            if fam == "hybrid":
+                self.shared = DenseLayer(cfg, dtype, dev)
+        elif fam == "vlm":
+            period = cfg.cross_attn_every
+            n_cross = cfg.n_layers // period
+            self.self_layers = nn.ModuleList(
+                nn.ModuleList(DenseLayer(cfg, dtype, dev) for _ in range(period - 1))
+                for _ in range(n_cross))
+            self.cross_layers = nn.ModuleList(
+                DenseLayer(cfg, dtype, dev, cross=True) for _ in range(n_cross))
+            self.vis_proj = Dense(cfg.d_vision, d, dtype, dev)
+        elif fam == "audio":
+            self.enc_layers = nn.ModuleList(
+                DenseLayer(cfg, dtype, dev) for _ in range(cfg.n_enc_layers))
+            self.dec_layers = nn.ModuleList(
+                DecoderLayer(cfg, dtype, dev) for _ in range(cfg.n_dec_layers))
+            self.audio_proj = Dense(cfg.d_audio, d, dtype, dev)
+        else:
+            raise ValueError(fam)
+
+    def init(self, generator: torch.Generator) -> "LMModel":
+        """Draw every parameter from ``generator`` with the reference's
+        distributions (module by module, in registration order)."""
+        for mod in self.modules():
+            if hasattr(mod, "init_"):
+                mod.init_(generator)
+        return self
+
+    # ------------------------------------------------------------------
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device)
+
+    def _positions(self, B: int, S: int, mode: str, length: int) -> torch.Tensor:
+        if mode == "decode":
+            return torch.full((B, 1), length, dtype=torch.int64, device=self.device)
+        return torch.arange(S, device=self.device).expand(B, S)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return torch.matmul(x, self.embed.w.t())
+        return torch.matmul(x, self.unembed.w)
+
+    def _full_forward(self, batch: Dict, mode: str, cache: Optional[Dict] = None,
+                      capacity: Optional[int] = None, last_only: bool = False):
+        """-> (logits, cache).  mode prefill | decode.  ``last_only`` takes
+        the logits of the last position only (a prefill's answer): the
+        final norm and the unembedding are row-wise, so those rows equal the
+        full forward's."""
+        if mode == "train":
+            raise NotImplementedError(_TRAINING)
+        if mode not in ("prefill", "decode"):
+            raise ValueError(mode)
+        if mode == "decode" and cache is None:
+            raise ValueError("decode needs the prefill's cache")
+        cfg = self.cfg
+        tokens = self._tokens(batch["tokens"])
+        B, S = tokens.shape
+        length = cache["length"] if mode == "decode" else 0
+        positions = self._positions(B, S, mode, length)
+        x = self.embed(tokens)
+        fam = cfg.family
+        if fam in ("dense", "moe", "ssm"):
+            x, new = self._stack(x, positions, mode, cache, capacity)
+        elif fam == "hybrid":
+            x, new = self._hybrid_backbone(x, positions, mode, cache, capacity)
+        elif fam == "vlm":
+            x, new = self._vlm_forward(x, batch, positions, mode, cache, capacity)
+        else:
+            x, new = self._audio_forward(x, batch, positions, mode, cache, capacity)
+        if last_only:
+            x = x[:, -1:]
+        x = self.final_norm(x, cfg.norm_eps)
+        logits = self._logits(x)
+        if mode == "decode":
+            cache["length"] = length + 1
+            return logits, cache
+        new["length"] = S
+        return logits, new
+
+    # -- dense / moe / ssm ------------------------------------------------
+    def _stack(self, x, positions, mode, cache, capacity):
+        length = cache["length"] if mode == "decode" else 0
+        caches = []
+        for i, layer in enumerate(self.layers):
+            lc = cache["layers"][i] if mode == "decode" else None
+            x, nc = layer(x, positions, mode, lc, length, capacity)
+            caches.append(nc)
+        return x, {"layers": caches}
+
+    # -- hybrid (zamba2) --------------------------------------------------
+    def _hybrid_backbone(self, x, positions, mode, cache, capacity):
+        """``period`` mamba layers, then the one shared attention block (its
+        own KV cache per application), ``n_shared`` times; then the tail."""
+        period = self.cfg.shared_attn_every
+        n_shared = self.cfg.n_layers // period
+        length = cache["length"] if mode == "decode" else 0
+        mamba, shared = [], []
+        for i, layer in enumerate(self.layers):
+            lc = cache["mamba"][i] if mode == "decode" else None
+            x, nc = layer(x, positions, mode, lc)
+            mamba.append(nc)
+            j = i // period
+            if (i + 1) % period == 0 and j < n_shared:
+                sc = cache["shared"][j] if mode == "decode" else None
+                x, nsc = self.shared(x, positions, mode, sc, length, capacity)
+                shared.append(nsc)
+        return x, {"mamba": mamba, "shared": shared}
+
+    # -- vlm --------------------------------------------------------------
+    def _vlm_forward(self, x, batch, positions, mode, cache, capacity):
+        length = cache["length"] if mode == "decode" else 0
+        vis = None
+        if mode != "decode":
+            emb = torch.as_tensor(batch["vision_embeds"], device=self.device)
+            vis = torch.matmul(emb, self.vis_proj.w)
+        selfc, crossc = [], []
+        for g, (group, cross) in enumerate(zip(self.self_layers, self.cross_layers)):
+            row = []
+            for j, layer in enumerate(group):
+                lc = cache["self"][g][j] if mode == "decode" else None
+                x, nc = layer(x, positions, mode, lc, length, capacity)
+                row.append(nc)
+            selfc.append(row)
+            cc = cache["cross"][g] if mode == "decode" else None
+            x, ncc = cross.apply_cross(x, vis, mode, cc)
+            crossc.append(ncc)
+        return x, {"self": selfc, "cross": crossc}
+
+    # -- audio (enc-dec) ----------------------------------------------------
+    def _audio_forward(self, x, batch, positions, mode, cache, capacity):
+        length = cache["length"] if mode == "decode" else 0
+        enc_out = None
+        if mode != "decode":
+            frames = torch.as_tensor(batch["frames"], device=self.device)
+            B, Sa = frames.shape[:2]
+            h = torch.matmul(frames, self.audio_proj.w)
+            pos_enc = torch.arange(Sa, device=self.device).expand(B, Sa)
+            for layer in self.enc_layers:
+                h, _ = layer(h, pos_enc, "encode")
+            enc_out = h
+        selfc, crossc = [], []
+        for i, layer in enumerate(self.dec_layers):
+            cs = cache["self"][i] if mode == "decode" else None
+            cc = cache["cross"][i] if mode == "decode" else None
+            x, ncs, ncc = layer(x, positions, mode, enc_out, cs, cc, length, capacity)
+            selfc.append(ncs)
+            crossc.append(ncc)
+        return x, {"self": selfc, "cross": crossc}
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def loss_fn(self, *args, **kwargs):
+        raise NotImplementedError(_TRAINING)
+
+    @torch.inference_mode()
+    def prefill(self, batch: Dict, capacity: Optional[int] = None):
+        """-> (last-position logits (B, V), cache preallocated to
+        ``capacity`` positions, the prompt's length by default)."""
+        logits, cache = self._full_forward(batch, "prefill", capacity=capacity,
+                                           last_only=True)
+        return logits[:, -1], cache
+
+    @torch.inference_mode()
+    def decode_step(self, cache: Dict, tokens):
+        """One token per request (tokens (B, 1)): -> (logits (B, V), the
+        same cache, updated in place)."""
+        logits, cache = self._full_forward({"tokens": tokens}, "decode", cache)
+        return logits[:, -1], cache
+
+    @torch.inference_mode()
+    def forward(self, batch: Dict) -> torch.Tensor:
+        """Every position's logits of a full prefill (B, S, V): the
+        reference's ``_full_forward(params, batch, "prefill")[0]``."""
+        return self._full_forward(batch, "prefill")[0]

@@ -1,15 +1,15 @@
-"""The random-access retrieval path (the paper's ``take``) for embedding and
+"""Batched serving engine: prefill + decode over a language model, plus the
+random-access retrieval path (the paper's ``take``) for embedding and
 document fetch, and IVF search over an index stored as dataset fragments.
 
-This is the port's copy of the retrieval half of the reference's serving
-engine.  ``BatchedEngine`` (prefill + decode over a language model) waits
-for ROADMAP.md, Queue 1 item 8 (the LM substrate), and raises.
+The port's copy of the reference's ``serve/engine.py``.  Generation runs
+under ``torch.inference_mode()``, eagerly (no ``torch.compile``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -18,7 +18,7 @@ from ..core.file import FileReader
 from ..kernels import ops
 from ..obs import NULL_TRACER
 
-__all__ = ["BatchedEngine", "Retriever", "SearchResult"]
+__all__ = ["BatchedEngine", "GenResult", "Retriever", "SearchResult"]
 
 _ROUTES = (None, "device", "pallas", "numpy")
 
@@ -43,13 +43,45 @@ class SearchResult:
     n_candidates: int = 0    # posting entries scored across probed parts
 
 
-class BatchedEngine:
-    """Static-batch generate over a language model: not ported yet."""
+@dataclasses.dataclass
+class GenResult:
+    tokens: np.ndarray  # (B, n_gen)
+    steps: int
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BatchedEngine is not ported yet (ROADMAP.md, Queue 1 item 8: "
-            "the LM substrate)")
+
+class BatchedEngine:
+    """Static-batch generate: prefill once, decode N steps with a cache
+    preallocated to capacity (prompt + n_new + 8, the reference's padding),
+    written in place by each step.  ``device`` is CUDA unless the caller
+    names the CPU (raises without a card) and must be the model's."""
+
+    def __init__(self, model, max_new: int = 32, device=None):
+        self.device = ops.resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"the model is on {model.device}, the engine on {self.device}")
+        self.model = model
+        self.max_new = max_new
+
+    def _capacity(self, prompt_len: int, n_new: int) -> int:
+        """The reference's ``_pad_cache(cache, n_new + 8)``, as a capacity
+        the prefill preallocates for every family (ssm states need none)."""
+        return prompt_len + n_new + 8
+
+    @torch.inference_mode()
+    def generate(self, batch: Dict, n_new: Optional[int] = None) -> GenResult:
+        """Greedy decoding of ``n_new`` (default ``max_new``) tokens."""
+        n_new = n_new or self.max_new
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        batch = {**batch, "tokens": tokens}
+        logits, cache = self.model.prefill(
+            batch, capacity=self._capacity(tokens.shape[1], n_new))
+        toks = []
+        cur = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        for _ in range(n_new):
+            toks.append(cur)
+            logits, cache = self.model.decode_step(cache, cur)
+            cur = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        return GenResult(torch.cat(toks, dim=1).cpu().numpy(), n_new)
 
 
 class Retriever:

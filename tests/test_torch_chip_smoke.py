@@ -45,7 +45,7 @@ def test_chip_smoke_rehearses_on_the_cpu(rehearsal):
             ("fullzip_gather", "take", None), ("fullzip_gather", "search", None),
             ("fullzip_gather", "serve", None), ("miniblock_decode", "paper", None),
             ("fullzip_gather", "paper", None), ("miniblock_decode", "loader", None),
-            ("fullzip_gather", "kv", None),
+            ("fullzip_gather", "kv", None), ("fullzip_gather", "lm", None),
             ("ivf_topk", "search", "probe"), ("bitunpack", "bitunpack", None),
             ("bitunpack", "bitunpack", "2**24")} <= entries
     assert {s for n, _, s in entries if n == "ivf_topk"} == {
@@ -55,7 +55,7 @@ def test_chip_smoke_rehearses_on_the_cpu(rehearsal):
                   "tiered", "tiered_path", "serve", "serve_latency", "serve_chaos",
                   "serve_trace", "serve_path", "paper", "paper_default_vs_tuned",
                   "paper_struct", "paper_nesting", "paper_path", "loader", "kv",
-                  "bitunpack_path", "done"):
+                  "lm", "lm_families", "lm_serve", "bitunpack_path", "done"):
         assert phase in phases
     records = [json.loads(ln) for ln in lines if ln.startswith('{"phase"')]
     streams = next(r for r in records if r["phase"] == "gather_streams")
@@ -134,3 +134,37 @@ def test_chip_smoke_rehearses_the_paper_loader_and_kv_paths(rehearsal):
     assert kernels[("fullzip_gather", "kv")]["shape"]["row_bytes"] == 81920
     assert kernels[("miniblock_decode", "loader")]["launches"] == \
         loader["launches"]["miniblock_decode"]
+
+
+def test_chip_smoke_rehearses_the_lm_path(rehearsal):
+    """The lm path at the rehearsal's size: reduced smollm-360m (2 prompts of
+    64 tokens, 4 new), the fetch through the gather, every check's error
+    below its bound, every config in the family sweep, the entry point."""
+    lines = rehearsal
+    records = {json.loads(ln)["phase"]: json.loads(ln) for ln in lines
+               if ln.startswith('{"phase": "lm')}
+    lm = records["lm"]
+    assert lm["arch"] == "smollm-360m" and lm["reduced"] and lm["dtype"] == "bfloat16"
+    assert lm["parameters"] == lm["param_counts"] + 9 * 128
+    assert lm["fetch"]["rows"] == 16 and lm["fetch"]["n_iops"] > 0
+    assert lm["decode_ms"]["steps"] == 4 and lm["prefill_ms"] > 0 and lm["tokens_per_s"] > 0
+    assert lm["cache_capacity"] == 64 + 4 + 8
+    checks = lm["checks"]
+    assert max(checks["prefill_vs_decode"], checks["card_vs_cpu_f32_64_tokens"]) < 0.06
+    assert checks["replay_max_gap"] <= 0.02
+    bounds = lm["bounds"]
+    assert 0 < bounds["weights_only_ms"] < bounds["decode_step_ms"] and bounds["prefill_ms"] > 0
+    assert lm["attention"]["rel_err_vs_sdpa"] < 2e-2
+    assert lm["launches"]["fullzip_gather"] > 0 and lm["fallbacks"] == {}
+    families = records["lm_families"]["archs"]
+    assert list(families) == ["smollm-360m", "qwen1.5-4b", "qwen2-72b", "qwen1.5-32b",
+                              "mamba2-780m", "grok-1-314b", "deepseek-v2-lite-16b", "zamba2-7b",
+                              "llama-3.2-vision-90b", "seamless-m4t-medium"]
+    for arch, r in families.items():
+        assert max(r["prefill_vs_decode"], r["card_vs_cpu_f32"]) < 0.06, arch
+        assert ("moved_tokens" in r) == (r["family"] == "moe")
+    serve = records["lm_serve"]
+    assert serve["arch"] == "smollm-360m" and serve["reduced"] and serve["fetch"]["rows"] == 32
+    kernels = {(k["name"], k["path"]): k for k in json.loads(lines[-2])["kernels"]}
+    row = kernels[("fullzip_gather", "lm")]
+    assert row["launches"] == lm["launches"]["fullzip_gather"] and row["mismatches"] == 0

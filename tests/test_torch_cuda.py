@@ -443,3 +443,83 @@ def test_cuda_token_loader_scans_through_the_decode_kernel(cuda_device):
         dev.close()
         host.close()
     assert ops.launches["miniblock_decode"] > 0 and ops.fallbacks == {}
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: the engine on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def _lm_pair(arch, device, dtype="bfloat16"):
+    """The same weights on the card (``dtype``) and on the CPU (float32)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import LMModel, build_model
+
+    cfg = dataclasses.replace(reduced_config(arch), dtype=dtype)
+    card = build_model(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+    host = LMModel(dataclasses.replace(cfg, dtype="float32"), device="cpu")
+    host.load_state_dict({k: v.float().cpu() for k, v in card.state_dict().items()})
+    return cfg, card, host
+
+
+def _lm_batch(cfg, B, S, seed=1):
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(1, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        b["vision_embeds"] = rng.standard_normal((B, cfg.n_vision_tokens, cfg.d_vision))
+    if cfg.family == "audio":
+        b["frames"] = rng.standard_normal((B, S, cfg.d_audio))
+    return b
+
+
+def _on(batch, device, dtype):
+    return {k: torch.as_tensor(v, device=device).to(dtype) if k != "tokens"
+            else torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2-72b", "grok-1-314b",
+                                  "deepseek-v2-lite-16b", "mamba2-780m", "zamba2-7b",
+                                  "llama-3.2-vision-90b", "seamless-m4t-medium"])
+def test_cuda_lm_prefill_and_decode_match_the_cpu(cuda_device, arch):
+    """bf16 on the card against float32 on the CPU, same weights: the last
+    logits within 0.06 of their max (the reference's consistency bound), and
+    the card's own decode step within 0.06 of its full forward."""
+    cfg, card, host = _lm_pair(arch, cuda_device)
+    batch = _lm_batch(cfg, 2, 32)
+    last, cache = card.prefill(_on(batch, cuda_device, torch.bfloat16), capacity=40)
+    want, _ = host.prefill(_on(batch, "cpu", torch.float32))
+    err = float((last.float().cpu() - want).abs().max() / want.abs().max())
+    assert err < 0.06, err
+    nxt = last.argmax(-1)[:, None].to(torch.int32)
+    step, _ = card.decode_step(cache, nxt)
+    full = card({**_on(batch, cuda_device, torch.bfloat16),
+                 "tokens": torch.cat([torch.as_tensor(batch["tokens"], device=cuda_device), nxt],
+                                     1)})[:, -1].float()
+    err = float((step.float() - full).abs().max() / full.abs().max())
+    assert err < 0.06, err
+
+
+def test_cuda_engine_generates_on_the_card_as_on_the_cpu(cuda_device):
+    """Greedy tokens, float32 on the card (TF32 off) and on the CPU, equal;
+    and the engine raises for a model on another device."""
+    from repro_torch.serve import BatchedEngine
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, card, host = _lm_pair("smollm-360m", cuda_device, dtype="float32")
+    prompts = _lm_batch(cfg, 2, 16)["tokens"]
+    got = BatchedEngine(card, device=cuda_device).generate({"tokens": prompts}, n_new=8)
+    want = BatchedEngine(host, device="cpu").generate({"tokens": prompts}, n_new=8)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    with pytest.raises(ValueError, match="the model is on"):
+        BatchedEngine(host, device=cuda_device)
+
+
+def test_cuda_launch_serve_fetches_through_the_gather(cuda_device):
+    from repro_torch.launch import serve
+
+    ops.reset_counts()
+    out = serve.run(docs=500, batch=2, new=4, device=cuda_device, verbose=False)
+    assert ops.launches["fullzip_gather"] > 0 and not ops.fallbacks
+    assert out["generate"]["tokens"].shape == (2, 4)

@@ -1,0 +1,260 @@
+"""The port's BatchedEngine, launch/serve.py and the serving example, against
+the JAX package's, on the CPU.
+
+* the reference's engine tests (tests/test_data_serve.py) run on the port;
+* greedy tokens equal the JAX engine's, token for token, in float32 (bf16
+  logits have exact top-2 ties that the two packages' rounding breaks
+  differently, the reason the reference's own test uses a 0.02 rule);
+* the engine's cache capacity (prompt + n_new + 8) gives every family's
+  cache the shape of the reference's padded one (``_pad_cache``), and a
+  decode past it raises instead of overwriting the last slot;
+* the weight and cache converters round-trip;
+* ``launch/serve.run`` and ``examples/retrieval_serve_torch.py`` run at a
+  small size.
+"""
+
+import dataclasses
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as RC
+from repro.models.registry import build_model as r_build_model
+from repro.serve.engine import BatchedEngine as RBatchedEngine
+from repro_torch.configs import ARCHS, reduced_config
+from repro_torch.launch import serve as p_serve
+from repro_torch.models import LMModel, build_model, convert
+from repro_torch.models.moe import moe_apply_sharded
+from repro_torch.serve import BatchedEngine
+
+from _torch_models import configs, make_batch, reference_pair, to_port
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+# ---------------------------------------------------------------------------
+# the reference's engine tests, on the port
+# ---------------------------------------------------------------------------
+
+
+def test_engine_generates():
+    cfg = reduced_config("smollm-360m")
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    eng = BatchedEngine(model, device="cpu")
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab, (2, 16)).astype(np.int32)
+    out = eng.generate({"tokens": prompts}, n_new=8)
+    assert out.tokens.shape == (2, 8) and out.steps == 8
+    assert (out.tokens >= 0).all() and (out.tokens < cfg.vocab).all()
+
+
+def test_engine_matches_autoregressive_forward():
+    """Each greedy decode token attains the full-forward max logit (bf16):
+    the engine's trajectory replayed through full prefills, every decoded
+    token's logit within 0.02 of the max (the reference test's rule)."""
+    cfg = reduced_config("mamba2-780m")
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    eng = BatchedEngine(model, device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(1, cfg.vocab, (1, 16)).astype(np.int32)
+    out = eng.generate({"tokens": prompts}, n_new=4)
+    seq = torch.from_numpy(prompts)
+    for tok in out.tokens[0].tolist():
+        ref = model({"tokens": seq})[0, -1].float()
+        assert float(ref[tok]) >= float(ref.max()) - 0.02, (tok, float(ref[tok]), float(ref.max()))
+        seq = torch.cat([seq, torch.full((1, 1), tok, dtype=seq.dtype)], dim=1)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-780m"])
+def test_greedy_tokens_equal_the_jax_engine_float32(arch):
+    rcfg, pcfg = configs(arch, "float32")
+    rm, jp, _, pm = reference_pair(rcfg, pcfg)
+    prompts = make_batch(rcfg, 2, 16, seed=4)["tokens"]
+    want = RBatchedEngine(rm, jp).generate({"tokens": jnp.asarray(prompts)}, n_new=8)
+    got = BatchedEngine(pm, device="cpu").generate({"tokens": prompts}, n_new=8)
+    assert got.tokens.dtype == np.int32
+    np.testing.assert_array_equal(got.tokens, np.asarray(want.tokens))
+    assert got.steps == want.steps == 8
+
+
+# ---------------------------------------------------------------------------
+# capacity
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_engine_capacity_matches_the_reference_padded_cache(arch):
+    """Every family's cache, preallocated to the engine's capacity, has the
+    shape of the reference engine's ``_pad_cache(prefill cache, n_new + 8)``
+    (attention caches padded on their sequence axis, ssm states as they are)."""
+    rcfg, pcfg = configs(arch, "float32")
+    rm = r_build_model(rcfg)
+    params = jax.eval_shape(lambda: rm.init(jax.random.PRNGKey(0))[0])
+    batch = make_batch(rcfg, 2, 12)
+    _, cache = jax.eval_shape(rm.prefill, params, {k: jnp.asarray(v) for k, v in batch.items()})
+    want = jax.eval_shape(lambda c: RBatchedEngine(rm, None)._pad_cache(c, 5 + 8), cache)
+    pm = LMModel(pcfg, device="cpu").init(torch.Generator().manual_seed(0))
+    eng = BatchedEngine(pm, device="cpu")
+    _, pcache = pm.prefill(batch, capacity=eng._capacity(12, 5))
+    got = convert.cache_to_reference(pcfg, pcache)
+    assert jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), want) == \
+        jax.tree.map(lambda a: (tuple(np.shape(a)), str(np.asarray(a).dtype)), got)
+
+
+def test_decode_past_capacity_raises():
+    cfg = reduced_config("smollm-360m")
+    model = build_model(cfg, device="cpu")
+    prompts = np.ones((1, 4), np.int32)
+    _, cache = model.prefill({"tokens": prompts}, capacity=5)
+    tok = torch.ones((1, 1), dtype=torch.int32)
+    _, cache = model.decode_step(cache, tok)
+    assert cache["length"] == 5
+    k_before = cache["layers"][0]["k"].clone()
+    with pytest.raises(IndexError, match="capacity 5"):
+        model.decode_step(cache, tok)
+    assert torch.equal(cache["layers"][0]["k"], k_before)
+
+
+def test_decode_updates_the_cache_in_place():
+    """The port's counterpart of the reference's donated cache: the step
+    returns the same tensors, written at ``length``."""
+    model = build_model(reduced_config("smollm-360m"), device="cpu")
+    _, cache = model.prefill({"tokens": np.ones((2, 6), np.int32)}, capacity=10)
+    k = cache["layers"][1]["k"]
+    ptr = k.data_ptr()
+    assert float(k[:, 6:].abs().sum()) == 0
+    _, cache2 = model.decode_step(cache, torch.ones((2, 1), dtype=torch.int32))
+    assert cache2 is cache and cache2["layers"][1]["k"].data_ptr() == ptr
+    assert float(k[:, 6].abs().sum()) > 0 and float(k[:, 7:].abs().sum()) == 0
+
+
+# ---------------------------------------------------------------------------
+# converters and cuts
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", list(RC.ARCHS))
+def test_params_convert_round_trip(arch):
+    """Reference tree -> port state dict -> reference tree, bit for bit
+    (experts re-tiled to the reference's slots), and the state dict loads
+    into the port's module exactly."""
+    rcfg, pcfg = configs(arch, "bfloat16")
+    params, _ = r_build_model(rcfg).init(jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, params)
+    state = convert.params_from_reference(pcfg, tree)
+    model = LMModel(pcfg, device="cpu")
+    model.load_state_dict(state, strict=True)
+    back = convert.params_to_reference(pcfg, model.state_dict())
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "deepseek-v2-lite-16b", "zamba2-7b",
+                                  "llama-3.2-vision-90b", "seamless-m4t-medium"])
+def test_cache_convert_round_trip(arch):
+    _, pcfg = configs(arch, "bfloat16")
+    model = build_model(pcfg, device="cpu")
+    _, cache = model.prefill(to_port(make_batch(pcfg, 2, 8)), capacity=12)
+    tree = convert.cache_to_reference(pcfg, cache)
+    back = convert.cache_from_reference(pcfg, tree)
+    assert back["length"] == cache["length"] == 8
+    again = convert.cache_to_reference(pcfg, back)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(again)):
+        a, b = np.atleast_1d(a), np.atleast_1d(b)
+        assert a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def test_converter_rejects_unequal_expert_replicas():
+    rcfg, pcfg = configs("grok-1-314b", "float32")
+    params, _ = r_build_model(rcfg).init(jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.array, params)
+    tree["layers"]["moe"]["wi"][0, -1] += 1.0
+    with pytest.raises(ValueError, match="replicas differ"):
+        convert.params_from_reference(pcfg, tree)
+
+
+def test_training_and_sharding_cuts_raise_naming_their_items():
+    cfg = reduced_config("smollm-360m")
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        model.loss_fn({"tokens": np.ones((1, 4), np.int32)})
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        model._full_forward({"tokens": np.ones((1, 4), np.int32)}, "train")
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        moe_apply_sharded(None, cfg, None)
+
+
+def test_engine_checks_its_device(monkeypatch):
+    model = build_model(reduced_config("smollm-360m"), device="cpu")
+    from repro_torch.serve import engine as engine_module
+
+    monkeypatch.setattr(engine_module.ops, "resolve_device", lambda d=None: torch.device("cuda"))
+    with pytest.raises(ValueError, match="the model is on cpu"):
+        BatchedEngine(model)
+
+
+def test_init_draws_from_the_generator():
+    """Same seed, same weights; the reference's distributions (embeddings
+    0.02, dense 1/sqrt(d_in), norms 1)."""
+    cfg = dataclasses.replace(reduced_config("smollm-360m"), dtype="float32")
+    a = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    b = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    c = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(4))
+    assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
+                                                  b.state_dict().values()))
+    assert not torch.equal(a.embed.w, c.embed.w)
+    assert abs(float(a.embed.w.std()) - 0.02) < 0.002
+    w = a.layers[0].mlp.wi.w
+    assert abs(float(w.std()) - cfg.d_model ** -0.5) < 0.01
+    assert float(a.final_norm.scale.min()) == float(a.final_norm.scale.max()) == 1.0
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+
+def test_launch_serve_runs_and_reduced_can_be_turned_off(capsys):
+    out = p_serve.run(device="cpu", docs=400, batch=2, new=4)
+    assert out["generate"]["tokens"].shape == (2, 4)
+    assert out["generate"]["arch"] == "smollm-360m" and out["generate"]["reduced"]
+    assert out["fetch"]["rows"] == 16 and out["fetch"]["n_iops"] > 0
+    assert "[retrieve]" in capsys.readouterr().out
+    ap_args = {}
+
+    def fake_run(*args, **kw):
+        ap_args["args"], ap_args["kw"] = args, kw
+
+    real = p_serve.run
+    p_serve.run = fake_run
+    try:
+        p_serve.main(["--no-reduced", "--device", "cpu"])
+        assert ap_args["args"][1] is False
+        p_serve.main(["--device", "cpu"])
+        assert ap_args["args"][1] is True
+    finally:
+        p_serve.run = real
+
+
+def test_retrieval_serve_torch_example_runs(monkeypatch, capsys):
+    """End-to-end smoke of examples/retrieval_serve_torch.py (scaled down,
+    on the CPU), as tests/test_data_serve.py runs the reference's."""
+    path = ROOT / "examples" / "retrieval_serve_torch.py"
+    spec = importlib.util.spec_from_file_location("retrieval_serve_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(mod, "N_DOCS", 400)
+    monkeypatch.setattr(mod, "N_FRAGMENTS", 2)
+    monkeypatch.setattr(mod, "N_PARTITIONS", 8)
+    monkeypatch.setattr(mod, "NPROBE", 4)
+    monkeypatch.setattr(mod, "reduced_config", lambda name: reduced_config("smollm-360m"))
+    mod.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[search]" in out and "[serve] generated" in out
+    assert "nvme_hit_rate=1.00" in out  # warm repeat fully cached

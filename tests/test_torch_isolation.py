@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and not ``examples/quickstart_torch.py`` imports jax or the
-JAX package, importing the port leaves
-jax unloaded, and its entry points never run on the CPU unasked."""
+``chip_smoke.py`` and not the examples ``quickstart_torch.py`` and
+``retrieval_serve_torch.py`` import jax or the JAX package, importing the
+port leaves jax unloaded, and its entry points (the readers and writer, the
+LM's ``LMModel``/``build_model``, ``BatchedEngine`` and
+``launch.serve.run``) never run on the CPU unasked."""
 
 import ast
 import os
@@ -20,7 +22,8 @@ from repro_torch.kernels import ops
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "retrieval_serve_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -48,7 +51,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, repro_torch.core, repro_torch.obs, repro_torch.store, "
             "repro_torch.dataset, repro_torch.serve, repro_torch.data, repro_torch.kernels.ops, "
             "repro_torch.kernels.build, "
-            "repro_torch.kernels.ref; "
+            "repro_torch.kernels.ref, repro_torch.configs, repro_torch.models, "
+            "repro_torch.models.convert, repro_torch.launch, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -75,3 +79,21 @@ def test_readers_default_to_cuda_and_raise_without_it(monkeypatch):
     assert fr.device == torch.device("cpu")
     with pytest.raises(ValueError):
         ops.resolve_device("meta")
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models import LMModel, build_model
+    from repro_torch.serve import BatchedEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config("smollm-360m")
+    cpu_model = build_model(cfg, device="cpu")
+    for make in (lambda: LMModel(cfg), lambda: build_model(cfg),
+                 lambda: build_model(cfg, device="cuda"), lambda: BatchedEngine(cpu_model),
+                 lambda: serve.run(docs=100)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert cpu_model.device == torch.device("cpu")
+    assert BatchedEngine(cpu_model, device="cpu").device == torch.device("cpu")

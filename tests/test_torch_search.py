@@ -220,5 +220,11 @@ def test_retriever_over_files_and_its_refusals():
         Retriever(got.reader, "emb", device="cpu")
     with pytest.raises(ValueError, match="no index"):
         got.search(vecs[0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        BatchedEngine(None, None)
+    # the engine beside the retriever is ported now (ROADMAP.md, item 8a)
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+
+    model = build_model(reduced_config("smollm-360m"), device="cpu")
+    out = BatchedEngine(model, device="cpu").generate({"tokens": np.ones((1, 4), np.int32)},
+                                                      n_new=2)
+    assert out.tokens.shape == (1, 2) and out.steps == 2

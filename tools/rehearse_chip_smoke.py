@@ -13,7 +13,8 @@ a run on the card:
 * the CUDA-only measurement is stubbed: ``torch.cuda.Event`` reads the host
   clock, ``torch.cuda.CUDAGraph`` / ``torch.cuda.graph`` run the captured
   code once and replay nothing, streams are one host stream,
-  ``synchronize`` returns at once, the build phase builds nothing and
+  ``synchronize`` returns at once, the peak-memory counters read 0, the
+  build phase builds nothing and
   ``nvidia-smi`` answers with a placeholder line;
 * the ``ops.launch_*`` launchers are no-ops, except the gather's, which
   writes its plain version's result into the output (``gather_streams``
@@ -24,9 +25,11 @@ a run on the card:
   bench's smoke size (96 requests; its cache, half of ``emb``, and its
   appends, a quarter fragment, shrink with the dataset); the paper path's
   types, struct and nesting rows take 16 rows twice at a few thousand rows
-  or fewer, the loader reads 64 short documents, and the KV pool holds 256
+  or fewer, the loader reads 64 short documents, the KV pool holds 256
   blocks for 8 requests over 4 decode steps (81,920-byte rows as on the
-  card).
+  card), and the lm path serves reduced smollm-360m (2 prompts of 64
+  tokens, 4 new tokens; the host reference and the family sweep as on the
+  card, all on the CPU).
 
 Every number it prints is a CPU number under the script's device names, so
 none of them is a measurement.  It exits with the script's code.
@@ -84,6 +87,10 @@ SHRINK = (
     ("KV_FEATURES, KV_BLOCKS = 5 * 64, 16384", "KV_FEATURES, KV_BLOCKS = 5 * 64, 256"),
     ("KV_REQUESTS, KV_PROMPT = 256, (512, 8192)", "KV_REQUESTS, KV_PROMPT = 8, (1, 300)"),
     ("KV_STEPS, KV_REPLACE_AT = 32, 16", "KV_STEPS, KV_REPLACE_AT = 4, 2"),
+    ('LM_ARCH, LM_REDUCED = "smollm-360m", False', 'LM_ARCH, LM_REDUCED = "smollm-360m", True'),
+    ("LM_BATCH, LM_PROMPT, LM_NEW, LM_NEIGHBORS = 8, 2048, 32, 8",
+     "LM_BATCH, LM_PROMPT, LM_NEW, LM_NEIGHBORS = 2, 64, 4, 8"),
+    ("LM_PARAMS = (361_758_720, 361_821_120)", "LM_PARAMS = (655_360, 656_512)"),
 )
 
 
@@ -135,6 +142,10 @@ def _stub_cuda() -> None:
     torch.cuda.get_device_properties = lambda *a: types.SimpleNamespace(
         multi_processor_count=132)
     torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.memory_allocated = lambda *a, **k: 0
+    torch.cuda.empty_cache = lambda: None
     torch.cuda.is_available = lambda: True
     torch.cuda.get_device_name = lambda *a: "CPU rehearsal"
     torch.cuda.device_count = lambda: 1
