@@ -120,7 +120,27 @@ Phases, one JSON object per line on stdout:
    ``TokenLoader`` over each yields 64 batches of 8 x 2,049 int32 tokens.
    The batches and ``batch_for_step`` must be equal; it prints each route's
    scan wall, tokens/s and the kernels' and copies' share;
-11. the kv path (``kv``): one layer's K pool of smollm-360m in a
+11. the train path (``train``): ``launch.train.train`` on smollm-360m at
+   full width and depth (361,821,120 parameters, bf16, adamw, no remat,
+   weights from a generator seeded 0): 6 steps of 8 x 2,048 positions, each
+   batch from ``TokenLoader.batch_for_step`` over the driver's device-route
+   token file, whose scan decodes through ``miniblock_decode``.  Every loss
+   and gradient norm must be finite, every weight matrix must move, every
+   step's scan must launch the decode kernel and nothing may fall back.
+   Then, from the same first weights (seeded by ``--seed``): the card's bf16
+   loss and gradients on one 1 x 65-token batch against the same weights in
+   float32 on the CPU (the loss within 2e-2 nats, each gradient tensor's
+   cosine >= 0.99), one adamw update in float32 on the card and on the CPU
+   from the same clipped gradients (each tensor within 1e-6 of its max
+   |value|), and the reference's loss-decrease smoke test at full width (8
+   steps at lr 3e-3 on one 2 x 33-token batch, the last loss below the
+   first); then every config of ``ARCHS`` at reduced_config in bf16 (the
+   same card/CPU check, MoE on pinned routes, and 8 steps on one batch).  It
+   prints each step's CUDA-event ms (mean, p50, max after the first),
+   host enqueue ms, the host ms of each ``batch_for_step`` and the decode
+   kernel's device ms in it, tokens/s, peak memory and the bound: 6 N
+   tokens FLOPs at 989 TFLOP/s (attention left out);
+12. the kv path (``kv``): one layer's K pool of smollm-360m in a
    ``PagedKVCache`` (5 KV heads x 64 bf16 features: 81,920-byte block rows;
    16,384 blocks, 1.25 GiB).  256 requests with prompts of 512-8,192 tokens
    are prefilled, then 32 decode steps append one token to every request
@@ -129,11 +149,12 @@ Phases, one JSON object per line on stdout:
    a mirror of the appended values rounded to bf16 on the host, and the
    plain gather of the same store (tolerance 0); it prints gathers, bytes,
    wall and the kernel's share;
-12. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
+13. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
    ``kernel_bench`` size), unpacked on the card and checked against the
    packed values;
-13. each kernel at the largest input each path gave it (``take``, ``search``,
-   ``tiered``, ``serve``, ``lm``, ``paper``, ``loader``, ``kv`` and ``bitunpack``;
+14. each kernel at the largest input each path gave it (``take``, ``search``,
+   ``tiered``, ``serve``, ``lm``, ``paper``, ``loader``, ``train``, ``kv`` and
+   ``bitunpack``;
    ``ivf_topk`` per search step: the centroid ``probe``
    and the ``candidates`` of each batch size), one ``kernels`` entry each:
    ``ms``, the mean of 20 back-to-back launches by CUDA events, host launch
@@ -148,7 +169,7 @@ Phases, one JSON object per line on stdout:
    is larger); and one more ``bitunpack`` row at 2**24 values of 11 bits
    (``"step": "2**24"``, no launches on any path: it shows whether the
    kernel reaches the bandwidth regime);
-14. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+15. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Between the sweep and the dataset, ``gather_streams`` holds the gather's
 per-launch work counter to its contract: the take shape's gather (16,429
@@ -169,6 +190,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -190,9 +212,12 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, reduced_config  # noqa: E402
 from repro_torch.configs.base import ShapeCfg  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import LMModel, build_model, model_flops, param_counts  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models.attention import flash_attention  # noqa: E402
+from repro_torch.train import (clip_by_global_norm, loss_and_grads,  # noqa: E402
+                               make_optimizer, make_train_step)
 from repro_torch.core.io_sim import (NVME, S3, Blackout, CorrelatedFault,  # noqa: E402
                                      Degradation, TransientErrors)
 from repro_torch.obs import (BurnWindow, MetricsPlane, Shedder, SLObjective,  # noqa: E402
@@ -280,6 +305,21 @@ LM_REPLAY, LM_REPLAY_TOKENS, LM_HOST_PROMPT = 2, 4, 64
 LM_SWEEP_B, LM_SWEEP_S, LM_SWEEP_NEW = 2, 32, 8
 LM_BOUND = 0.06  # tests/test_models.py:110's prefill/decode bound
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+# the train path: launch/train.py's train() on smollm-360m at full width and
+# depth in bf16, TRAIN_BATCH x TRAIN_SEQ positions a step (the loader path's
+# batch and seq_len) from its device-route token file, TRAIN_STEPS steps;
+# then the reference's loss-decrease smoke test at full width (TRAIN_OVERFIT
+# steps at TRAIN_OVERFIT_LR on one 2 x 33-token batch, tests/test_models.py),
+# the card against float32 on the CPU on one 1 x TRAIN_HOST_TOKENS batch,
+# and every config reduced (8 steps on one batch, the same card/CPU check)
+TRAIN_ARCH, TRAIN_REDUCED = "smollm-360m", False
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 2048
+TRAIN_OVERFIT, TRAIN_OVERFIT_LR, TRAIN_HOST_TOKENS = 8, 3e-3, 65
+# bounds of the card (bf16) against the CPU (float32) on the same weights:
+# the loss in nats, each gradient tensor's cosine with the CPU's; the
+# optimizer alone on identical float32 gradients, each parameter and moment
+# as a share of its tensor's max |value|
+TRAIN_LOSS_NATS, TRAIN_GRAD_COS, TRAIN_OPT_TOL = 2e-2, 0.99, 1e-6
 RTOL = 1e-6
 KERNEL_REPLACES = {
     "miniblock_decode": "src/repro/kernels/miniblock_decode.py:107",
@@ -407,6 +447,10 @@ class Probe:
         self.largest = {}  # (kernel, path, step) -> (size, args, kw)
         self.launched = {}  # (kernel, path, step) -> launches
         self.path = None
+        # one wrapped call at a time: a TokenLoader's producer thread calls
+        # the decode beside the main thread, and each call reads the
+        # wrapper's launch count before and after
+        self.lock = threading.RLock()
         self.real = {n: getattr(ops, n) for n in
                      (*WRAPPERS.values(), "to_device", "to_host")}
         for name, fn in self.real.items():
@@ -416,6 +460,10 @@ class Probe:
         kernel = {w: k for k, w in WRAPPERS.items()}.get(name)
 
         def timed(*args, **kw):
+            with self.lock:
+                return call(*args, **kw)
+
+        def call(*args, **kw):
             n0 = ops.launches[kernel] if kernel else 0
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -2056,6 +2104,397 @@ def loader_path_phase(seed, probe):
     return launches
 
 
+class TrainRecorder:
+    """Records ``launch.train.train``'s run from outside: the model it
+    builds (and a copy of its first weights), each step's CUDA-event time,
+    host enqueue time and metrics, and each ``TokenLoader.batch_for_step``
+    call's host time, its ``miniblock_decode`` launches on the calling
+    thread and the decode's device time (the probe's lock keeps the
+    loader's producer thread out of those counts).  ``restore`` unwraps."""
+
+    def __init__(self, probe):
+        self.probe = probe
+        self.model, self.first = None, None
+        self.steps = []  # (start, end events, host ms, metrics)
+        self.scans = []  # {"host_ms", "launches", "kernel_events"}
+        self.scanning = threading.local()
+        self.real = {"build_model": launch_train.build_model,
+                     "make_train_step": launch_train.make_train_step,
+                     "batch_for_step": TokenLoader.batch_for_step,
+                     "miniblock_decode": ops.miniblock_decode}
+        launch_train.build_model = self._build_model
+        launch_train.make_train_step = self._make_train_step
+        TokenLoader.batch_for_step = self._batch_for_step()
+        ops.miniblock_decode = self._decode
+
+    def _build_model(self, *args, **kw):
+        self.model = self.real["build_model"](*args, **kw)
+        self.first = {k: v.detach().clone() for k, v in self.model.named_parameters()}
+        return self.model
+
+    def _make_train_step(self, *args, **kw):
+        step = self.step_fn = self.real["make_train_step"](*args, **kw)
+
+        def timed(*a):
+            self.last_args = a
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            h = time.perf_counter()
+            s.record()
+            metrics = step(*a)
+            e.record()
+            self.steps.append((s, e, (time.perf_counter() - h) * 1e3, metrics))
+            return metrics
+
+        return timed
+
+    def _batch_for_step(self):
+        real = self.real["batch_for_step"]
+
+        def timed(loader, step):
+            self.scanning.scan = {"launches": 0, "kernel_events": []}
+            h = time.perf_counter()
+            try:
+                return real(loader, step)
+            finally:
+                self.scanning.scan["host_ms"] = (time.perf_counter() - h) * 1e3
+                self.scans.append(self.scanning.scan)
+                self.scanning.scan = None
+
+        return timed
+
+    def _decode(self, *args, **kw):
+        scan = getattr(self.scanning, "scan", None)
+        if scan is None:
+            return self.real["miniblock_decode"](*args, **kw)
+        with self.probe.lock:
+            n0 = ops.launches["miniblock_decode"]
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = self.real["miniblock_decode"](*args, **kw)
+            e.record()
+            scan["launches"] += ops.launches["miniblock_decode"] - n0
+            scan["kernel_events"].append((s, e))
+        return out
+
+    def restore(self):
+        launch_train.build_model = self.real["build_model"]
+        launch_train.make_train_step = self.real["make_train_step"]
+        TokenLoader.batch_for_step = self.real["batch_for_step"]
+        ops.miniblock_decode = self.real["miniblock_decode"]
+
+
+def train_attention_ms(cfg, dev):
+    """The blockwise attention of one layer at the train step's shape, by
+    CUDA events: the forward alone, and forward + backward with its tiles
+    checkpointed as in training (backward recomputes each tile)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, h, hd), generator=g, device=dev)
+               .to(torch.bfloat16).requires_grad_(True) for h in (H, Hkv, Hkv))
+    cot = torch.randn((TRAIN_BATCH, TRAIN_SEQ, H, hd), generator=g, device=dev).to(torch.bfloat16)
+
+    def forward():
+        with torch.no_grad():
+            flash_attention(q, k, v, causal=True)
+
+    def forward_backward():
+        torch.autograd.grad(flash_attention(q, k, v, causal=True), (q, k, v), cot)
+
+    return {"shape": [TRAIN_BATCH, TRAIN_SEQ, H, Hkv, hd],
+            "forward_ms": time_ms(forward, reps=3, warmup=1),
+            "forward_backward_ms": time_ms(forward_backward, reps=3, warmup=1)}
+
+
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet", "wgmma")
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpyAsync", "cudaMemcpy", "cudaFree", "cudaMalloc")
+
+
+def train_step_profile(step_fn, args):
+    """One more train step under ``torch.profiler``: the kernels' device
+    time (the matrix products' total, the top kernels by time), the device's
+    idle share of the step (the CUDA-event time less the kernels', one
+    stream), and the host's time in runtime calls that can wait for the
+    device.  None when the profiler records no device activity."""
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=list(torch.profiler.supported_activities())) as prof:
+        s.record()
+        step_fn(*args)
+        e.record()
+        torch.cuda.synchronize()
+    step_ms = s.elapsed_time(e)
+    kernels, waits = {}, {}
+    for ev in prof.events():
+        ms = ev.time_range.elapsed_us() / 1e3
+        if str(ev.device_type).endswith("CUDA"):
+            k = kernels.setdefault(ev.name, [0.0, 0])
+        elif ev.name in HOST_WAITS:
+            k = waits.setdefault(ev.name, [0.0, 0])
+        else:
+            continue
+        k[0] += ms
+        k[1] += 1
+    if not kernels:
+        return None
+    busy = sum(ms for ms, _ in kernels.values())
+    gemm = sum(ms for n, (ms, _) in kernels.items() if any(g in n.lower() for g in GEMM_NAMES))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"step_ms": step_ms, "kernels": sum(c for _, c in kernels.values()),
+            "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / step_ms),
+            "matmul_ms": gemm, "top": [[n[:90], ms, c] for n, (ms, c) in top],
+            "host_waits": {n: {"ms": ms, "calls": c} for n, (ms, c) in waits.items()}}
+
+
+def train_batch(cfg, B, S, rng):
+    """(B, S + 1) tokens in [1, vocab) (the reference's ``_batch``), and the
+    vlm's vision embeddings or the audio model's frames, as host arrays."""
+    b = lm_batch(cfg, B, S, rng)
+    b["tokens"] = rng.integers(1, cfg.vocab, (B, S + 1)).astype(np.int32)
+    return b
+
+
+def grad_agreement(card, host):
+    """Each gradient tensor of the card against the CPU's: -> (min cosine,
+    its tensor, median cosine, tensors that are zero on the CPU, tensors
+    zero on the CPU and not on the card)."""
+    cos, zero, wrong = {}, 0, []
+    for name, h in host.items():
+        c = card[name].float().cpu()
+        hn = float(h.norm())
+        if hn == 0.0:
+            zero += 1
+            if float(c.abs().max()) != 0.0:
+                wrong.append(name)
+            continue
+        cos[name] = float((c * h).sum() / (c.norm() * hn))
+    worst = min(cos, key=lambda k: cos[k] if np.isfinite(cos[k]) else -2.0)
+    return cos[worst], worst, float(np.median(list(cos.values()))), zero, wrong
+
+
+def card_vs_cpu(model, cfg, batch, dev, pin=False):
+    """The card's bf16 loss and gradients against the same weights in
+    float32 on the CPU; MoE on pinned routes (every routing call of the
+    card's forward and backward recompute, replayed on the host)."""
+    routes = PinnedRouting().record() if pin else None
+    try:
+        loss_c, _, grads_c = loss_and_grads(model, on_device(batch, dev, torch.bfloat16))
+    finally:
+        if routes:
+            routes.restore()
+    host = host_twin(model, cfg)
+    if routes:
+        routes.replay(routes.recorded)
+    try:
+        loss_h, _, grads_h = loss_and_grads(host, on_device(batch, "cpu", torch.float32))
+    finally:
+        if routes:
+            routes.restore()
+    cos, worst, median, zero, wrong = grad_agreement(grads_c, grads_h)
+    out = {"loss_card": float(loss_c), "loss_cpu_f32": float(loss_h),
+           "loss_diff_nats": abs(float(loss_c) - float(loss_h)), "grad_cos_min": cos,
+           "grad_cos_min_tensor": worst, "grad_cos_median": median,
+           "grad_tensors": len(grads_h), "zero_grad_tensors": zero}
+    if routes:
+        out["moved_tokens"] = routes.moved
+    check(not wrong, f"train {cfg.name}: gradients zero on the CPU and not on the card: {wrong}")
+    check(out["loss_diff_nats"] < TRAIN_LOSS_NATS,
+          f"train {cfg.name}: card vs CPU loss {out['loss_diff_nats']} >= {TRAIN_LOSS_NATS} nats")
+    check(cos >= TRAIN_GRAD_COS,
+          f"train {cfg.name}: gradient cosine {cos} ({worst}) < {TRAIN_GRAD_COS}")
+    return out, grads_c
+
+
+def optimizer_vs_cpu(model, cfg, grads, dev):
+    """One update of the config's optimizer in float32 on the card and on
+    the CPU from the same weights and the same (clipped) float32 gradients:
+    each parameter and state tensor's largest difference as a share of its
+    max |value|."""
+    opt = make_optimizer(cfg.optimizer, lr=3e-4)
+    sides = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        params = {k: v.detach().float().to(where) for k, v in model.named_parameters()}
+        g = {k: v.float().to(where) for k, v in grads.items()}
+        state = opt.init(params)
+        g, norm = clip_by_global_norm(g, 1.0)
+        opt.update(g, state, params, 0)
+        sides[side] = (params, state, float(norm))
+        del g
+    errs = {}
+    for key in sides["cpu"][0]:
+        errs[key] = rel_err(sides["cpu"][0][key], sides["card"][0][key])
+    flat = lambda st: {f"{k}.{p}.{sub}" if isinstance(v, dict) else f"{k}.{p}": v  # noqa: E731
+                       for k, leaves in st.items() for p, vv in leaves.items()
+                       for sub, v in (vv.items() if isinstance(vv, dict) else [(None, vv)])}
+    card_state, cpu_state = flat(sides["card"][1]), flat(sides["cpu"][1])
+    for key, want in cpu_state.items():
+        if float(want.abs().max()) > 0:
+            errs[key] = rel_err(want, card_state[key])
+    worst = max(errs, key=errs.get)
+    out = {"optimizer": cfg.optimizer, "grad_norm_card": sides["card"][2],
+           "grad_norm_cpu": sides["cpu"][2], "max_rel_err": errs[worst], "worst": worst,
+           "tensors": len(errs), "bound": TRAIN_OPT_TOL}
+    check(errs[worst] <= TRAIN_OPT_TOL,
+          f"train: the optimizer on the card vs the CPU {errs[worst]} ({worst}) > {TRAIN_OPT_TOL}")
+    return out
+
+
+def overfit(model, cfg, batch, lr, steps):
+    """The reference's loss-decrease smoke test: ``steps`` steps of the
+    config's optimizer on one batch; the losses, last below first."""
+    opt = make_optimizer(cfg.optimizer, lr=lr)
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(model, opt)
+    losses = [float(step(state, batch, i)["loss"]) for i in range(steps)]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train {cfg.name}: the loss did not decrease on one batch: {losses}")
+    return losses
+
+
+def train_family_sweep(seed, dev):
+    """Every config of ARCHS at reduced_config in bf16 on the card: 8 steps
+    of its optimizer at lr 3e-3 on one 2 x 33-token batch, the loss
+    decreasing; and, from the same first weights, the card's loss and
+    gradients against float32 on the CPU (MoE on pinned routes)."""
+    rng = np.random.default_rng(seed + 37)
+    out = {}
+    for arch in ARCHS:
+        cfg = reduced_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model = build_model(cfg, device=dev, generator=gen)
+        batch = train_batch(cfg, LM_SWEEP_B, LM_SWEEP_S, rng)
+        rec, _ = card_vs_cpu(model, cfg, batch, dev, pin=cfg.moe is not None)
+        rec["losses"] = overfit(model, cfg, on_device(batch, dev, torch.bfloat16),
+                                TRAIN_OVERFIT_LR, TRAIN_OVERFIT)
+        out[arch] = {"family": cfg.family, "optimizer": cfg.optimizer, "remat": cfg.remat, **rec}
+        del model
+    return out
+
+
+def train_path_phase(seed, probe):
+    """The training path (see the module docstring, item 11)."""
+    dev = torch.device("cuda")
+    cfg = reduced_config(TRAIN_ARCH) if TRAIN_REDUCED else get_config(TRAIN_ARCH)
+    t = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    rec = TrainRecorder(probe)
+    ops.reset_counts()  # the train path starts here
+    s = time.perf_counter()
+    try:
+        loss, last = launch_train.train(TRAIN_ARCH, reduced=TRAIN_REDUCED, steps=TRAIN_STEPS,
+                                        batch=TRAIN_BATCH, seq=TRAIN_SEQ, device="cuda",
+                                        log_every=TRAIN_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        rec.restore()
+    launches = dict(ops.launches)  # and ends here
+    fallbacks = dict(ops.fallbacks)
+    t["launch_s"] = time.perf_counter() - s
+    peak = torch.cuda.max_memory_allocated() - base
+    model = rec.model
+    held = sum(p.numel() for p in model.parameters())
+    check(last == TRAIN_STEPS and len(rec.steps) == TRAIN_STEPS and len(rec.scans) == TRAIN_STEPS,
+          f"train: {last} steps, {len(rec.steps)} timed, {len(rec.scans)} scans")
+    step_ms = [a.elapsed_time(b) for a, b, _, _ in rec.steps]
+    enqueue_ms = [h for _, _, h, _ in rec.steps]
+    losses = [float(m["loss"]) for *_, m in rec.steps]
+    norms = [float(m["grad_norm"]) for *_, m in rec.steps]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)) and loss == losses[-1],
+          f"train: a loss or gradient norm is not finite: {losses} {norms}")
+    # bf16 weights: a 3e-4 step moves every matrix entry of ~0.03, but not
+    # a norm scale of 1.0 (half its ulp is 2e-3), so the matrices must move
+    moved = {k for k, v in model.named_parameters() if not torch.equal(v.detach(), rec.first[k])}
+    matrices = {k for k, v in model.named_parameters() if v.ndim >= 2}
+    check(matrices <= moved, f"train: weights that never moved: {sorted(matrices - moved)}")
+    n_tensors = len(rec.first)
+    per_scan = [sc["launches"] for sc in rec.scans]
+    check(all(n >= 1 for n in per_scan),
+          f"train: a step's scan did not launch miniblock_decode: {per_scan}")
+    check(launches["miniblock_decode"] >= TRAIN_STEPS,
+          f"train: {launches['miniblock_decode']} decode launches for {TRAIN_STEPS} steps")
+    check(not fallbacks, f"train: fell back to the host: {fallbacks}")
+    scan_host = [sc["host_ms"] for sc in rec.scans]
+    scan_kernel = [sum(a.elapsed_time(b) for a, b in sc["kernel_events"]) for sc in rec.scans]
+    # where a step's time goes: one more step of the same run, profiled,
+    # and the attention of one layer alone
+    s = time.perf_counter()
+    state, batch, _ = rec.last_args
+    profile = train_step_profile(rec.step_fn, (state, batch, TRAIN_STEPS))
+    attention = train_attention_ms(cfg, dev)
+    t["profile_s"] = time.perf_counter() - s
+    del rec, state, batch
+    model.requires_grad_(False)
+    del model
+    torch.cuda.empty_cache()
+
+    # the reference's loss-decrease test at full width, and the card
+    # against float32 on the CPU from the same first weights
+    s = time.perf_counter()
+    rng = np.random.default_rng(seed + 41)
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    host_batch = train_batch(cfg, 1, TRAIN_HOST_TOKENS - 1, rng)
+    host, grads = card_vs_cpu(model, cfg, host_batch, dev)
+    t["host_s"] = time.perf_counter() - s
+    s = time.perf_counter()
+    opt_check = optimizer_vs_cpu(model, cfg, grads, dev)
+    del grads
+    t["optimizer_s"] = time.perf_counter() - s
+    s = time.perf_counter()
+    batch = on_device(train_batch(cfg, LM_SWEEP_B, LM_SWEEP_S, rng), dev, torch.bfloat16)
+    overfit_losses = overfit(model, cfg, batch, TRAIN_OVERFIT_LR, TRAIN_OVERFIT)
+    t["overfit_s"] = time.perf_counter() - s
+    model.requires_grad_(False)
+    del model
+    torch.cuda.empty_cache()
+
+    s = time.perf_counter()
+    families = train_family_sweep(seed, dev)
+    t["families_s"] = time.perf_counter() - s
+    emit({"phase": "train_families", "batch": LM_SWEEP_B, "seq": LM_SWEEP_S,
+          "steps": TRAIN_OVERFIT, "lr": TRAIN_OVERFIT_LR, "dtype": "bfloat16",
+          "bounds": {"loss_nats": TRAIN_LOSS_NATS, "grad_cos": TRAIN_GRAD_COS},
+          "archs": families})
+
+    # the bound: 6 N tokens FLOPs at the bf16 dense tensor peak, attention
+    # left out (model_flops' train count)
+    positions = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg, ShapeCfg("train", "train", TRAIN_SEQ, TRAIN_BATCH))
+    bound_ms = flops / BF16_FLOPS_PER_S * 1e3
+    steady = np.asarray(step_ms[1:] if len(step_ms) > 1 else step_ms)
+    emit({"phase": "train", "arch": cfg.name, "reduced": TRAIN_REDUCED, "dtype": cfg.dtype,
+          "optimizer": cfg.optimizer, "remat": cfg.remat, "parameters": held,
+          "param_counts": param_counts(cfg)[0], "peak_bytes": peak, "steps": TRAIN_STEPS,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "positions_per_step": positions,
+          "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+          "step_ms_steady": {"mean": float(steady.mean()), "p50": float(np.median(steady)),
+                             "max": float(steady.max()), "steps": len(steady)},
+          "step_ms_all": {"mean": float(np.mean(step_ms)), "p50": float(np.median(step_ms)),
+                          "max": float(np.max(step_ms))},
+          "step_host_enqueue_ms": enqueue_ms,
+          "tokens_per_s": positions / (float(steady.mean()) / 1e3),
+          "scan": {"host_ms": scan_host, "kernel_ms": scan_kernel,
+                   "launches_per_step": per_scan,
+                   "kernel_share": float(np.sum(scan_kernel) / np.sum(scan_host))},
+          "bounds": {"step_ms": bound_ms, "train_flops": flops,
+                     "bf16_flops_per_s": BF16_FLOPS_PER_S,
+                     "x_bound": float(steady.mean()) / bound_ms},
+          "moved_tensors": len(moved), "tensors": n_tensors,
+          "profile": profile, "attention": attention,
+          "overfit": {"batch": LM_SWEEP_B, "seq": LM_SWEEP_S, "lr": TRAIN_OVERFIT_LR,
+                      "losses": overfit_losses},
+          "card_vs_cpu_f32": {"tokens": TRAIN_HOST_TOKENS, **host,
+                              "bounds": {"loss_nats": TRAIN_LOSS_NATS,
+                                         "grad_cos": TRAIN_GRAD_COS}},
+          "optimizer_vs_cpu_f32": opt_check,
+          "seconds": t, "launches": launches, "fallbacks": fallbacks})
+    return launches
+
+
 def kv_path_phase(seed, probe):
     """smollm-360m's paged K pool: KV_REQUESTS prefills, then KV_STEPS
     decode steps that append one token to every request and gather every
@@ -2234,7 +2673,7 @@ def kernel_case(name, a, kw):
 
 
 PATH_ORDER = {"take": 0, "search": 1, "tiered": 2, "serve": 3, "lm": 4, "paper": 5,
-              "loader": 6, "kv": 7, "bitunpack": 8}
+              "loader": 6, "train": 7, "kv": 8, "bitunpack": 9}
 
 
 def measure_phase(probe, smallest, launches, sweep, rng):
@@ -2334,6 +2773,8 @@ def main() -> int:
     launches["paper"] = timed("paper", paper_path_phase, args.seed, probe)
     probe.path = "loader"
     launches["loader"] = timed("loader", loader_path_phase, args.seed, probe)
+    probe.path = "train"
+    launches["train"] = timed("train", train_path_phase, args.seed, probe)
     probe.path = "kv"
     launches["kv"] = timed("kv", kv_path_phase, args.seed, probe)
     probe.path = "bitunpack"

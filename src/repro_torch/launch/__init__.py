@@ -1,2 +1,2 @@
-# Launchers: the serving driver (serve.py).  Training (train.py), the mesh
-# and the dry run wait for ROADMAP.md, Queue 1 items 8b and 8c.
+# Launchers: the serving driver (serve.py) and the training driver
+# (train.py).  The mesh and the dry run wait for ROADMAP.md, Queue 1 item 8c.

@@ -7,7 +7,10 @@ it step by step: scores are float32 products of the (possibly bf16) inputs,
 probabilities are cast to the value dtype before the PV product, which
 accumulates in float32, and ``NEG_INF`` is an additive bias.  A bf16
 ``torch.matmul`` would round its output to bf16, so each such product
-upcasts its operands to float32 first.
+upcasts its operands to float32 first.  Under autograd (training) each
+tile of the blockwise attention is checkpointed, as the reference wraps
+each k-block in ``jax.checkpoint``: backward recomputes the tile's f32
+scores and probabilities instead of saving them.
 
 Decode KV caches hold the head/feature dims flattened (``Hkv*head_dim``), as
 the reference's do, and are preallocated to a capacity: a decode step writes
@@ -24,6 +27,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .common import Dense, apply_rope, rope_freqs
 
@@ -36,6 +40,26 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 # blockwise attention (prefill / encode)
 # ---------------------------------------------------------------------------
+
+
+def _tile(qblk, kblk, vblk, m, l, acc, q0: int, q1: int, k0: int, k1: int,
+          causal: bool, kv_len: Optional[int], scale: float, v_dtype: torch.dtype):
+    """One (q-block, k-block) tile of the online softmax: the running max
+    ``m``, sum ``l`` and f32 accumulator ``acc`` rescaled by the new max."""
+    dev = qblk.device
+    s = torch.matmul(qblk, kblk.float().transpose(-1, -2)) * scale
+    ik = torch.arange(k0, k1, device=dev)
+    if causal:
+        iq = torch.arange(q0, q1, device=dev)
+        s = s + torch.where(iq[:, None] >= ik[None, :], 0.0, NEG_INF)
+    if kv_len is not None:
+        s = s + torch.where(ik < kv_len, 0.0, NEG_INF)
+    mn = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - mn[..., None])
+    corr = torch.exp(m - mn)
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.matmul(p.to(v_dtype).float(), vblk.float())
+    return mn, l, acc * corr[..., None] + pv
 
 
 def flash_attention(
@@ -58,7 +82,9 @@ def flash_attention(
     (the reference asserts; a 2,049-token replay of a 2,048-token prompt
     needs it), and causal tiles that lie wholly above the diagonal are
     skipped (in the reference they add exp(NEG_INF - m) = 0 and rescale by
-    exp(0) = 1)."""
+    exp(0) = 1).  When autograd records (any input requires grad), each tile
+    runs under ``torch.utils.checkpoint``: only its inputs are saved, and
+    backward recomputes the same values."""
     B, Sq, H, D = q.shape
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Hkv
@@ -66,6 +92,7 @@ def flash_attention(
     q_chunk = min(q_chunk, Sq)
     k_chunk = min(k_chunk, Sk)
     dev = q.device
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     # (B, Hkv, G, S, D): one batched matmul per tile
     qh = q.reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4).float()
     kh = k.permute(0, 2, 1, 3).unsqueeze(2)  # (B, Hkv, 1, Sk, D)
@@ -81,20 +108,12 @@ def flash_attention(
             if causal and k0 > q1 - 1:
                 break
             k1 = min(k0 + k_chunk, Sk)
-            s = torch.matmul(qblk, kh[:, :, :, k0:k1].float().transpose(-1, -2)) * scale
-            ik = torch.arange(k0, k1, device=dev)
-            if causal:
-                iq = torch.arange(q0, q1, device=dev)
-                s = s + torch.where(iq[:, None] >= ik[None, :], 0.0, NEG_INF)
-            if kv_len is not None:
-                s = s + torch.where(ik < kv_len, 0.0, NEG_INF)
-            mn = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - mn[..., None])
-            corr = torch.exp(m - mn)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.matmul(p.to(v.dtype).float(), vh[:, :, :, k0:k1].float())
-            acc = acc * corr[..., None] + pv
-            m = mn
+            args = (qblk, kh[:, :, :, k0:k1], vh[:, :, :, k0:k1], m, l, acc,
+                    q0, q1, k0, k1, causal, kv_len, scale, v.dtype)
+            if remat:
+                m, l, acc = checkpoint(_tile, *args, use_reentrant=False)
+            else:
+                m, l, acc = _tile(*args)
         outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
     out = torch.cat(outs, dim=3) if len(outs) > 1 else outs[0]  # (B, Hkv, G, Sq, Dv)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv)
@@ -166,9 +185,10 @@ class GQA(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor, mode: str,
                 cache: Optional[Dict] = None, length: int = 0,
                 capacity: Optional[int] = None):
-        """mode prefill | encode | decode.  Prefill returns a new cache
-        ``{"k", "v"}`` of ``capacity`` positions; decode writes ``cache`` in
-        place at ``length`` and returns it."""
+        """mode prefill | train | encode | decode.  Prefill returns a new
+        cache ``{"k", "v"}`` of ``capacity`` positions; decode writes
+        ``cache`` in place at ``length`` and returns it; train and encode
+        return none."""
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim

@@ -138,7 +138,10 @@ def rope_freqs(head_dim: int, theta: float,
     """positions (...,) -> cos/sin of shape (..., head_dim//2), f32."""
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32, device=positions.device) / half
-    inv = 1.0 / (torch.tensor(theta, dtype=torch.float32, device=positions.device) ** exps)
+    # a Python float base: a float32 scalar operand of the pow kernel, where
+    # a tensor built on the card from it is a host-to-device copy that
+    # waits for the card (once per attention layer and call)
+    inv = 1.0 / (float(theta) ** exps)
     ang = positions.float()[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 

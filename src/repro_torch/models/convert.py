@@ -27,11 +27,20 @@ The parameter mapping (reference tree path -> port state-dict name):
 Caches map the same way: the reference's stacked ``(L, B, S, F)`` arrays
 (``(n_cross, period - 1, B, S, F)`` for vlm's self caches) become the
 port's per-layer lists, and ``length`` an int.
+
+Gradients are keyed like the parameters, so ``params_to_reference`` and
+``params_from_reference`` map them too (with ``data_size=1`` for MoE: a
+tiled reference's unused expert replicas get zero gradients, which the
+port does not hold).  ``stacked_leaves`` groups the port's parameter names
+into the reference's stacked leaves; the port's optimizers
+(``train/optimizer.py``) keep their state per such leaf, already stacked,
+and ``opt_state_to_reference`` / ``opt_state_from_reference`` map it to the
+reference's optimizer-state tree and back.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +48,8 @@ import torch
 from .moe import expert_slots
 
 __all__ = ["params_from_reference", "params_to_reference", "cache_from_reference",
-           "cache_to_reference", "to_torch", "to_numpy"]
+           "cache_to_reference", "stacked_leaves", "opt_state_to_reference",
+           "opt_state_from_reference", "to_torch", "to_numpy"]
 
 # stacked parameter groups and how many leading layer axes each has
 _PARAM_STACKS = {"layers": 1, "enc_layers": 1, "dec_layers": 1, "cross_layers": 1,
@@ -133,6 +143,66 @@ def params_to_reference(cfg, state: Dict[str, torch.Tensor], data_size: int = 16
         leaves = [by_idx[i] for i in np.ndindex(*shape)]
         flat[path] = np.stack(leaves).reshape(shape + leaves[0].shape)
     return _nest(flat)
+
+
+def stacked_leaves(names: Iterable[str]) -> Dict[str, Tuple[Tuple[int, ...], List[str]]]:
+    """The reference's leaves over the port's parameter names, in the order
+    each leaf first appears: ``{leaf path: (stack shape, names)}``.  A leaf
+    path is the reference's tree path joined by dots (``layers.attn.q.w``);
+    the stack shape is its leading layer axes (``(L,)``, ``(n_cross,
+    period - 1)`` for vlm's ``self_layers``, ``()`` for an unstacked leaf);
+    ``names`` lists the port's per-layer names in ``np.ndindex`` order of
+    that shape (``layers.0.attn.q.w``, ``layers.1.attn.q.w``, ...)."""
+    by_leaf: Dict[str, Dict[tuple, str]] = {}
+    for name in names:
+        parts = name.split(".")
+        depth = _PARAM_STACKS.get(parts[0], 0)
+        idx = tuple(int(q) for q in parts[1:1 + depth])
+        path = ".".join((parts[0], *parts[1 + depth:]))
+        by_leaf.setdefault(path, {})[idx] = name
+    out = {}
+    for path, by_idx in by_leaf.items():
+        depth = len(next(iter(by_idx)))
+        shape = tuple(max(i[k] for i in by_idx) + 1 for k in range(depth))
+        if len(by_idx) != int(np.prod(shape, dtype=np.int64)):
+            raise ValueError(f"{path}: layers {sorted(by_idx)} do not fill {shape}")
+        out[path] = (shape, [by_idx[i] for i in np.ndindex(*shape)])
+    return out
+
+
+def opt_state_to_reference(state: Dict) -> Dict:
+    """The port's optimizer state (``{"m": {leaf path: tensor}, ...}`` for
+    adamw, ``{"f": {leaf path: {"r", "c"} | {"v"}}}`` for adafactor) ->
+    the reference's optimizer-state tree (numpy leaves)."""
+    out = {}
+    for key, leaves in state.items():
+        flat = {}
+        for path, v in leaves.items():
+            base = tuple(path.split("."))
+            if isinstance(v, dict):
+                flat.update({base + (sub,): to_numpy(t) for sub, t in v.items()})
+            else:
+                flat[base] = to_numpy(v)
+        out[key] = _nest(flat)
+    return out
+
+
+def opt_state_from_reference(tree: Dict, device: Optional[torch.device] = None) -> Dict:
+    """The reference's optimizer-state tree -> the port's, on ``device``.
+    Adafactor's per-leaf ``{"r", "c"}`` / ``{"v"}`` dicts (under ``"f"``)
+    stay dicts under their leaf's path."""
+    device = torch.device("cpu") if device is None else device
+    out: Dict = {}
+    for key, sub in tree.items():
+        leaves: Dict = {}
+        for path, a in _flatten(sub):
+            t = to_torch(np.asarray(a)).to(device)
+            if key == "f":
+                leaves.setdefault(".".join(path[:-1]), {})[path[-1]] = t
+            else:
+                leaves[".".join(path)] = t
+        out[key] = leaves
+    return out
 
 
 def _cache_depths(cfg) -> Dict[str, int]:

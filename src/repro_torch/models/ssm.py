@@ -62,6 +62,12 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     xh (B,S,H,P); dt (B,S,H) f32 post-softplus; A (H,) f32 negative;
     Bm/Cm (B,S,G,N).  Heads share B/C within a group (G divides H).  Returns
     y (B,S,H,P) f32 and the final state (B,H,N,P) f32.
+
+    One deliberate difference, in gradients only: the reference takes
+    exp of every within-chunk log-decay and masks after, so a decay past
+    float32's exp range above the diagonal makes its backward 0 * inf =
+    NaN; the port exponentiates the masked log-decay, the same values with
+    finite gradients.
     """
     B_, S, H, Pd = xh.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -93,7 +99,8 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]  # (B,nc,Qi,Qj,H)
     iq = torch.arange(Q, device=xh.device)
     causal = iq[:, None] >= iq[None, :]
-    L = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    # exp of the masked log-decay: the values of where(causal, exp(seg), 0)
+    L = torch.exp(torch.where(causal[None, None, :, :, None], seg, float("-inf")))
     scores = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh) * L
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xc)
 
@@ -145,8 +152,9 @@ class Mamba2(nn.Module):
             self.dt_bias.zero_()
 
     def forward(self, x: torch.Tensor, mode: str, cache: Optional[Dict] = None):
-        """mode prefill | decode.  Prefill returns the cache ``{"state",
-        "conv": {"x", "B", "C"}}``; decode updates it in place."""
+        """mode prefill | decode | train.  Prefill returns the cache
+        ``{"state", "conv": {"x", "B", "C"}}``; decode updates it in place;
+        train runs the prefill's chunked scan and returns no cache."""
         cfg, s = self.cfg, self.cfg.ssm
         B, S, _ = x.shape
         di, H, Pd = cfg.d_inner, cfg.ssm_heads, s.head_dim
@@ -185,8 +193,8 @@ class Mamba2(nn.Module):
             new_cache = cache
         else:
             y, S_last = ssd_chunked(xh, dt, A, Bm, Cm, s.chunk)
-            new_cache = {"state": S_last,
-                         "conv": {"x": cx.clone(), "B": cB.clone(), "C": cC.clone()}}
+            new_cache = None if mode == "train" else {
+                "state": S_last, "conv": {"x": cx.clone(), "B": cB.clone(), "C": cC.clone()}}
 
         y = y + self.D[None, None, :, None] * xh.float()
         y = y.reshape(B, S, di).to(x.dtype)

@@ -1,4 +1,4 @@
-"""Model assembly for every assigned architecture family: the serving half.
+"""Model assembly for every assigned architecture family.
 
 The port's copy of the reference's ``models/transformer.py``: one generic LM
 covering dense / MoE / MLA attention, Mamba2 (SSM), the Zamba2-style hybrid
@@ -25,10 +25,23 @@ donates its cache.
 API (used by serve/engine and launch/serve):
 
 * ``init(generator)``                       -> self (the reference's distributions)
+* ``loss_fn(batch)``                       -> (loss, {"nll", "aux"}), under autograd
 * ``prefill(batch, capacity=None)``        -> (last_logits, cache)
 * ``decode_step(cache, tokens)``           -> (last_logits, cache)
 * ``model(batch)``                         -> every position's logits
-* ``loss_fn``: training waits for ROADMAP.md, Queue 1 item 8b, and raises.
+
+Parameters are created with ``requires_grad=False``: serving records no
+graph.  Training makes them trainable (``model.requires_grad_(True)``, which
+``train.train_loop.make_train_step`` does) and calls ``loss_fn`` with
+autograd on.  ``prefill``, ``decode_step`` and ``forward`` run under
+``torch.inference_mode`` whatever the parameters' flag.
+
+Per-layer remat follows ``cfg.remat`` in train mode, as the reference's
+``_remat``: ``"full"`` runs each layer under ``torch.utils.checkpoint``
+(non-reentrant), so backward recomputes its activations; ``"dots"`` (the
+reference's ``dots_with_no_batch_dims_saveable`` policy, which saves the
+weight products) maps to the same full recompute here.  Either way the
+values are those of ``"none"``; only memory and time differ.
 """
 
 from __future__ import annotations
@@ -38,6 +51,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ..configs.base import ModelConfig
 from ..kernels import ops
 from .attention import GQA, MLA, CrossAttention
@@ -46,8 +61,6 @@ from .moe import MoE
 from .ssm import Mamba2
 
 __all__ = ["LMModel", "MLP", "mlp_apply"]
-
-_TRAINING = "training is not ported yet (ROADMAP.md, Queue 1 item 8b)"
 
 
 # ---------------------------------------------------------------------------
@@ -97,11 +110,13 @@ class MoELayer(nn.Module):
         self.moe = MoE(cfg, dtype, device)
 
     def forward(self, x, positions, mode, cache=None, length=0, capacity=None):
+        """-> (x, new cache, the router's aux loss): the other layers return
+        (x, new cache) only."""
         eps = self.cfg.norm_eps
         h, nc = self.attn(self.n1(x, eps), positions, mode, cache, length, capacity)
         x = x + h
-        m, _ = self.moe(self.n2(x, eps))
-        return x + m, nc
+        m, aux = self.moe(self.n2(x, eps))
+        return x + m, nc, aux["aux"]
 
 
 class SSMLayer(nn.Module):
@@ -205,15 +220,21 @@ class LMModel(nn.Module):
             return torch.matmul(x, self.embed.w.t())
         return torch.matmul(x, self.unembed.w)
 
+    def _remat(self, fn, mode: str):
+        """``fn`` under ``torch.utils.checkpoint`` in train mode when the
+        config asks for remat (see the module docstring), else ``fn``."""
+        if mode == "train" and self.cfg.remat != "none" and torch.is_grad_enabled():
+            return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+        return fn
+
     def _full_forward(self, batch: Dict, mode: str, cache: Optional[Dict] = None,
                       capacity: Optional[int] = None, last_only: bool = False):
-        """-> (logits, cache).  mode prefill | decode.  ``last_only`` takes
-        the logits of the last position only (a prefill's answer): the
-        final norm and the unembedding are row-wise, so those rows equal the
-        full forward's."""
-        if mode == "train":
-            raise NotImplementedError(_TRAINING)
-        if mode not in ("prefill", "decode"):
+        """-> (logits, cache, aux).  mode prefill | decode | train.  Train
+        returns no cache and the MoE layers' summed aux loss (float32 0 for
+        the other families).  ``last_only`` takes the logits of the last
+        position only (a prefill's answer): the final norm and the
+        unembedding are row-wise, so those rows equal the full forward's."""
+        if mode not in ("prefill", "decode", "train"):
             raise ValueError(mode)
         if mode == "decode" and cache is None:
             raise ValueError("decode needs the prefill's cache")
@@ -224,33 +245,42 @@ class LMModel(nn.Module):
         positions = self._positions(B, S, mode, length)
         x = self.embed(tokens)
         fam = cfg.family
+        aux = None
         if fam in ("dense", "moe", "ssm"):
-            x, new = self._stack(x, positions, mode, cache, capacity)
+            x, new, aux = self._stack(x, positions, mode, cache, capacity)
         elif fam == "hybrid":
             x, new = self._hybrid_backbone(x, positions, mode, cache, capacity)
         elif fam == "vlm":
             x, new = self._vlm_forward(x, batch, positions, mode, cache, capacity)
         else:
             x, new = self._audio_forward(x, batch, positions, mode, cache, capacity)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if last_only:
             x = x[:, -1:]
         x = self.final_norm(x, cfg.norm_eps)
         logits = self._logits(x)
+        if mode == "train":
+            return logits, None, aux
         if mode == "decode":
             cache["length"] = length + 1
-            return logits, cache
+            return logits, cache, aux
         new["length"] = S
-        return logits, new
+        return logits, new, aux
 
     # -- dense / moe / ssm ------------------------------------------------
     def _stack(self, x, positions, mode, cache, capacity):
+        """-> (x, {"layers": caches}, the MoE layers' aux summed, or None)."""
         length = cache["length"] if mode == "decode" else 0
-        caches = []
+        caches, aux = [], None
         for i, layer in enumerate(self.layers):
             lc = cache["layers"][i] if mode == "decode" else None
-            x, nc = layer(x, positions, mode, lc, length, capacity)
+            out = self._remat(layer, mode)(x, positions, mode, lc, length, capacity)
+            x, nc = out[:2]
             caches.append(nc)
-        return x, {"layers": caches}
+            if len(out) == 3:  # a MoE layer's aux loss
+                aux = out[2] if aux is None else aux + out[2]
+        return x, {"layers": caches}, aux
 
     # -- hybrid (zamba2) --------------------------------------------------
     def _hybrid_backbone(self, x, positions, mode, cache, capacity):
@@ -262,12 +292,13 @@ class LMModel(nn.Module):
         mamba, shared = [], []
         for i, layer in enumerate(self.layers):
             lc = cache["mamba"][i] if mode == "decode" else None
-            x, nc = layer(x, positions, mode, lc)
+            x, nc = self._remat(layer, mode)(x, positions, mode, lc)
             mamba.append(nc)
             j = i // period
             if (i + 1) % period == 0 and j < n_shared:
                 sc = cache["shared"][j] if mode == "decode" else None
-                x, nsc = self.shared(x, positions, mode, sc, length, capacity)
+                x, nsc = self._remat(self.shared, mode)(x, positions, mode, sc, length,
+                                                        capacity)
                 shared.append(nsc)
         return x, {"mamba": mamba, "shared": shared}
 
@@ -283,11 +314,11 @@ class LMModel(nn.Module):
             row = []
             for j, layer in enumerate(group):
                 lc = cache["self"][g][j] if mode == "decode" else None
-                x, nc = layer(x, positions, mode, lc, length, capacity)
+                x, nc = self._remat(layer, mode)(x, positions, mode, lc, length, capacity)
                 row.append(nc)
             selfc.append(row)
             cc = cache["cross"][g] if mode == "decode" else None
-            x, ncc = cross.apply_cross(x, vis, mode, cc)
+            x, ncc = self._remat(cross.apply_cross, mode)(x, vis, mode, cc)
             crossc.append(ncc)
         return x, {"self": selfc, "cross": crossc}
 
@@ -301,13 +332,14 @@ class LMModel(nn.Module):
             h = torch.matmul(frames, self.audio_proj.w)
             pos_enc = torch.arange(Sa, device=self.device).expand(B, Sa)
             for layer in self.enc_layers:
-                h, _ = layer(h, pos_enc, "encode")
+                h, _ = self._remat(layer, mode)(h, pos_enc, "encode")
             enc_out = h
         selfc, crossc = [], []
         for i, layer in enumerate(self.dec_layers):
             cs = cache["self"][i] if mode == "decode" else None
             cc = cache["cross"][i] if mode == "decode" else None
-            x, ncs, ncc = layer(x, positions, mode, enc_out, cs, cc, length, capacity)
+            x, ncs, ncc = self._remat(layer, mode)(x, positions, mode, enc_out, cs, cc, length,
+                                                   capacity)
             selfc.append(ncs)
             crossc.append(ncc)
         return x, {"self": selfc, "cross": crossc}
@@ -315,22 +347,37 @@ class LMModel(nn.Module):
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
-    def loss_fn(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING)
+    def loss_fn(self, batch: Dict):
+        """-> (loss, {"nll", "aux"}): next-token cross-entropy over
+        ``batch["tokens"]`` (B, S + 1), the reference's ``loss_fn``.  The
+        input is ``tokens[:, :-1]``; the logits are upcast to float32, the
+        nll is ``logsumexp`` minus the gold logit, averaged, plus
+        ``router_aux_coef`` times the summed aux for MoE.  Records autograd
+        when the parameters require grad."""
+        tokens = self._tokens(batch["tokens"])
+        inp = {**batch, "tokens": tokens[:, :-1]}
+        logits, _, aux = self._full_forward(inp, "train")
+        targets = tokens[:, 1:].long()
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        nll = (lse - gold).mean()
+        loss = nll + self.cfg.moe.router_aux_coef * aux if self.cfg.moe else nll
+        return loss, {"nll": nll, "aux": aux}
 
     @torch.inference_mode()
     def prefill(self, batch: Dict, capacity: Optional[int] = None):
         """-> (last-position logits (B, V), cache preallocated to
         ``capacity`` positions, the prompt's length by default)."""
-        logits, cache = self._full_forward(batch, "prefill", capacity=capacity,
-                                           last_only=True)
+        logits, cache, _ = self._full_forward(batch, "prefill", capacity=capacity,
+                                              last_only=True)
         return logits[:, -1], cache
 
     @torch.inference_mode()
     def decode_step(self, cache: Dict, tokens):
         """One token per request (tokens (B, 1)): -> (logits (B, V), the
         same cache, updated in place)."""
-        logits, cache = self._full_forward({"tokens": tokens}, "decode", cache)
+        logits, cache, _ = self._full_forward({"tokens": tokens}, "decode", cache)
         return logits[:, -1], cache
 
     @torch.inference_mode()

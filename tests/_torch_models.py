@@ -58,10 +58,12 @@ def configs(arch: str, dtype: str, reduced: bool = True, **replace):
             dataclasses.replace(p, dtype=dtype, **replace))
 
 
-def reference_pair(rcfg, pcfg, seed: int = 0):
+def reference_pair(rcfg, pcfg, seed: int = 0, data_size: int = 16):
     """-> (reference model, its params (jnp), their numpy tree, the port's
-    model on the CPU holding the same weights)."""
-    rm = r_build_model(rcfg)
+    model on the CPU holding the same weights).  ``data_size`` is the
+    reference's expert tiling (MoE): 1 holds each expert once, as the port
+    does, so gradients and optimizer states map one to one."""
+    rm = r_build_model(rcfg, data_size=data_size)
     params, _ = rm.init(jax.random.PRNGKey(seed))
     tree = perturb(jax.tree.map(np.asarray, params), seed)
     pm = LMModel(pcfg, device="cpu")

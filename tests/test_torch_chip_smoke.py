@@ -47,6 +47,7 @@ def test_chip_smoke_rehearses_on_the_cpu(rehearsal):
             ("fullzip_gather", "paper", None), ("miniblock_decode", "loader", None),
             ("fullzip_gather", "kv", None), ("fullzip_gather", "lm", None),
             ("ivf_topk", "search", "probe"), ("bitunpack", "bitunpack", None),
+            ("miniblock_decode", "train", None),
             ("bitunpack", "bitunpack", "2**24")} <= entries
     assert {s for n, _, s in entries if n == "ivf_topk"} == {
         "probe", "candidates q=1", "candidates q=4", "candidates q=8"}
@@ -55,7 +56,8 @@ def test_chip_smoke_rehearses_on_the_cpu(rehearsal):
                   "tiered", "tiered_path", "serve", "serve_latency", "serve_chaos",
                   "serve_trace", "serve_path", "paper", "paper_default_vs_tuned",
                   "paper_struct", "paper_nesting", "paper_path", "loader", "kv",
-                  "lm", "lm_families", "lm_serve", "bitunpack_path", "done"):
+                  "lm", "lm_families", "lm_serve", "train", "train_families",
+                  "bitunpack_path", "done"):
         assert phase in phases
     records = [json.loads(ln) for ln in lines if ln.startswith('{"phase"')]
     streams = next(r for r in records if r["phase"] == "gather_streams")
@@ -168,3 +170,35 @@ def test_chip_smoke_rehearses_the_lm_path(rehearsal):
     kernels = {(k["name"], k["path"]): k for k in json.loads(lines[-2])["kernels"]}
     row = kernels[("fullzip_gather", "lm")]
     assert row["launches"] == lm["launches"]["fullzip_gather"] and row["mismatches"] == 0
+
+
+def test_chip_smoke_rehearses_the_train_path(rehearsal):
+    """The train path at the rehearsal's size: launch.train on reduced
+    smollm-360m (3 steps of 2 x 64 positions), every step's scan through
+    the decode wrapper with no fallback, the matrices moved, the card/CPU
+    and optimizer checks within their bounds, the loss decreasing on one
+    batch, every config in the family sweep, and the kernels row."""
+    lines = rehearsal
+    records = {json.loads(ln)["phase"]: json.loads(ln) for ln in lines
+               if ln.startswith('{"phase": "train')}
+    tr = records["train"]
+    assert tr["arch"] == "smollm-360m" and tr["reduced"] and tr["dtype"] == "bfloat16"
+    assert tr["steps"] == 3 and tr["positions_per_step"] == 2 * 64
+    assert len(tr["losses"]) == len(tr["grad_norms"]) == len(tr["step_ms"]) == 3
+    assert tr["scan"]["launches_per_step"] == [1, 1, 1] and tr["fallbacks"] == {}
+    assert tr["launches"]["miniblock_decode"] >= 3
+    assert tr["bounds"]["step_ms"] > 0 and tr["tokens_per_s"] > 0
+    assert 0 < tr["moved_tensors"] <= tr["tensors"]
+    host = tr["card_vs_cpu_f32"]
+    assert host["loss_diff_nats"] < 2e-2 and host["grad_cos_min"] >= 0.99
+    assert tr["optimizer_vs_cpu_f32"]["max_rel_err"] <= 1e-6
+    assert tr["overfit"]["losses"][-1] < tr["overfit"]["losses"][0]
+    families = records["train_families"]["archs"]
+    assert len(families) == 10
+    for arch, r in families.items():
+        assert r["losses"][-1] < r["losses"][0], arch
+        assert r["loss_diff_nats"] < 2e-2 and r["grad_cos_min"] >= 0.99, arch
+        assert ("moved_tokens" in r) == (r["family"] == "moe")
+    kernels = {(k["name"], k["path"]): k for k in json.loads(lines[-2])["kernels"]}
+    row = kernels[("miniblock_decode", "train")]
+    assert row["launches"] == tr["launches"]["miniblock_decode"] and row["mismatches"] == 0

@@ -523,3 +523,71 @@ def test_cuda_launch_serve_fetches_through_the_gather(cuda_device):
     out = serve.run(docs=500, batch=2, new=4, device=cuda_device, verbose=False)
     assert ops.launches["fullzip_gather"] > 0 and not ops.fallbacks
     assert out["generate"]["tokens"].shape == (2, 4)
+
+
+# ---------------------------------------------------------------------------
+# training: the train step on the card against the CPU, and the driver
+# ---------------------------------------------------------------------------
+
+
+def _train_grads(model, batch):
+    from repro_torch.train import loss_and_grads
+
+    loss, _, grads = loss_and_grads(model, batch)
+    return float(loss), {n: g.float().cpu() for n, g in grads.items()}
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2-72b", "mamba2-780m", "zamba2-7b",
+                                  "llama-3.2-vision-90b", "seamless-m4t-medium"])
+def test_cuda_loss_and_gradients_match_the_cpu(cuda_device, arch):
+    """bf16 on the card against float32 on the CPU, same weights: the loss
+    within 2e-2 nats and each gradient tensor's cosine with the CPU's at
+    least 0.99 (chip_smoke.py's train bounds)."""
+    cfg, card, host = _lm_pair(arch, cuda_device)
+    batch = _lm_batch(cfg, 2, 32)
+    batch["tokens"] = np.random.default_rng(2).integers(1, cfg.vocab, (2, 33)).astype(np.int32)
+    loss_c, grads_c = _train_grads(card, _on(batch, cuda_device, torch.bfloat16))
+    loss_h, grads_h = _train_grads(host, _on(batch, "cpu", torch.float32))
+    assert abs(loss_c - loss_h) < 2e-2, (loss_c, loss_h)
+    for name, h in grads_h.items():
+        c = grads_c[name]
+        if float(h.norm()) == 0.0:
+            assert float(c.abs().max()) == 0.0, name
+            continue
+        cos = float((c * h).sum() / (c.norm() * h.norm()))
+        assert cos >= 0.99, (name, cos)
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_cuda_optimizer_matches_the_cpu(cuda_device, name):
+    """Two float32 updates on the card and on the CPU from the same weights
+    and gradients: every parameter within 1e-6 of its tensor's max |value|."""
+    from repro_torch.train import clip_by_global_norm, make_optimizer
+
+    cfg, _, host = _lm_pair("grok-1-314b", cuda_device, dtype="float32")
+    rng = np.random.default_rng(0)
+    grads = [{k: torch.from_numpy(rng.standard_normal(tuple(p.shape)).astype(np.float32))
+              for k, p in host.named_parameters()} for _ in range(2)]
+    opt = make_optimizer(name, lr=1e-2)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        params = {k: v.detach().clone().to(dev) for k, v in host.named_parameters()}
+        state = opt.init(params)
+        for step, g in enumerate(grads):
+            clipped, _ = clip_by_global_norm({k: v.to(dev) for k, v in g.items()}, 1.0)
+            opt.update(clipped, state, params, step)
+        out[dev.type] = {k: v.cpu() for k, v in params.items()}
+    for k, want in out["cpu"].items():
+        err = float((out["cuda"][k] - want).abs().max() / want.abs().max())
+        assert err <= 1e-6, (k, err)
+
+
+def test_cuda_launch_train_scans_through_the_decode_kernel(cuda_device):
+    """launch.train on the card: every step's batch comes from the
+    device-route token file through miniblock_decode, with no fallback."""
+    from repro_torch.launch import train
+
+    ops.reset_counts()
+    loss, last = train.train("smollm-360m", steps=3, batch=2, seq=64, device=cuda_device)
+    assert np.isfinite(loss) and last == 3
+    assert ops.launches["miniblock_decode"] >= 3 and not ops.fallbacks

@@ -180,12 +180,14 @@ def test_converter_rejects_unequal_expert_replicas():
 
 
 def test_training_and_sharding_cuts_raise_naming_their_items():
+    """Training (item 8b) is ported: ``loss_fn`` and the train forward run.
+    The sharded MoE still waits for item 8c and raises naming it."""
     cfg = reduced_config("smollm-360m")
     model = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        model.loss_fn({"tokens": np.ones((1, 4), np.int32)})
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        model._full_forward({"tokens": np.ones((1, 4), np.int32)}, "train")
+    loss, metrics = model.loss_fn({"tokens": np.ones((1, 4), np.int32)})
+    assert np.isfinite(float(loss)) and float(metrics["aux"]) == 0.0
+    logits, cache, _ = model._full_forward({"tokens": np.ones((1, 4), np.int32)}, "train")
+    assert logits.shape == (1, 4, cfg.vocab) and cache is None
     with pytest.raises(NotImplementedError, match="item 8c"):
         moe_apply_sharded(None, cfg, None)
 

@@ -1,9 +1,10 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and not the examples ``quickstart_torch.py`` and
-``retrieval_serve_torch.py`` import jax or the JAX package, importing the
-port leaves jax unloaded, and its entry points (the readers and writer, the
-LM's ``LMModel``/``build_model``, ``BatchedEngine`` and
-``launch.serve.run``) never run on the CPU unasked."""
+``chip_smoke.py`` and not the examples ``quickstart_torch.py``,
+``retrieval_serve_torch.py`` and ``train_lm_torch.py`` import jax or the
+JAX package, importing the port leaves jax unloaded, and its entry points
+(the readers and writer, the LM's ``LMModel``/``build_model``,
+``BatchedEngine``, ``launch.serve.run``, ``launch.train.train`` and the
+training example's ``run``) never run on the CPU unasked."""
 
 import ast
 import os
@@ -23,7 +24,7 @@ from repro_torch.kernels import ops
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "retrieval_serve_torch.py"]
+    ROOT / "examples" / "retrieval_serve_torch.py", ROOT / "examples" / "train_lm_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -52,7 +53,9 @@ def test_import_leaves_jax_out():
             "repro_torch.dataset, repro_torch.serve, repro_torch.data, repro_torch.kernels.ops, "
             "repro_torch.kernels.build, "
             "repro_torch.kernels.ref, repro_torch.configs, repro_torch.models, "
-            "repro_torch.models.convert, repro_torch.launch, repro_torch.launch.serve; "
+            "repro_torch.models.convert, repro_torch.launch, repro_torch.launch.serve, "
+            "repro_torch.train, repro_torch.train.optimizer, repro_torch.train.train_loop, "
+            "repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -82,17 +85,27 @@ def test_readers_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    import importlib.util
+
     from repro_torch.configs import reduced_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import LMModel, build_model
     from repro_torch.serve import BatchedEngine
 
+    spec = importlib.util.spec_from_file_location("train_lm_torch",
+                                                  ROOT / "examples" / "train_lm_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(example.C, "ARCHS", dict(example.C.ARCHS))  # run() registers its config
     cfg = reduced_config("smollm-360m")
     cpu_model = build_model(cfg, device="cpu")
     for make in (lambda: LMModel(cfg), lambda: build_model(cfg),
                  lambda: build_model(cfg, device="cuda"), lambda: BatchedEngine(cpu_model),
-                 lambda: serve.run(docs=100)):
+                 lambda: serve.run(docs=100), lambda: train.train("smollm-360m", steps=1),
+                 lambda: train.train("smollm-360m", steps=1, device="cuda"),
+                 lambda: train.main(["--steps", "1"]),
+                 lambda: example.run(example.smollm_100m(), steps=1, batch=2, seq=16)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert cpu_model.device == torch.device("cpu")

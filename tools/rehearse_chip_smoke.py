@@ -27,9 +27,12 @@ a run on the card:
   types, struct and nesting rows take 16 rows twice at a few thousand rows
   or fewer, the loader reads 64 short documents, the KV pool holds 256
   blocks for 8 requests over 4 decode steps (81,920-byte rows as on the
-  card), and the lm path serves reduced smollm-360m (2 prompts of 64
-  tokens, 4 new tokens; the host reference and the family sweep as on the
-  card, all on the CPU).
+  card), the lm path serves reduced smollm-360m (2 prompts of 64 tokens, 4
+  new tokens; the host reference and the family sweep as on the card, all
+  on the CPU), and the train path trains reduced smollm-360m (3 steps of
+  2 x 64 positions; its checks and the family sweep as on the card with 4
+  overfit steps and a 33-token host batch, the "card" side in bf16 on the
+  CPU).
 
 Every number it prints is a CPU number under the script's device names, so
 none of them is a measurement.  It exits with the script's code.
@@ -91,6 +94,10 @@ SHRINK = (
     ("LM_BATCH, LM_PROMPT, LM_NEW, LM_NEIGHBORS = 8, 2048, 32, 8",
      "LM_BATCH, LM_PROMPT, LM_NEW, LM_NEIGHBORS = 2, 64, 4, 8"),
     ("LM_PARAMS = (361_758_720, 361_821_120)", "LM_PARAMS = (655_360, 656_512)"),
+    ('TRAIN_ARCH, TRAIN_REDUCED = "smollm-360m", False', 'TRAIN_ARCH, TRAIN_REDUCED = "smollm-360m", True'),
+    ("TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 2048", "TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 2, 64"),
+    ("TRAIN_OVERFIT, TRAIN_OVERFIT_LR, TRAIN_HOST_TOKENS = 8, 3e-3, 65",
+     "TRAIN_OVERFIT, TRAIN_OVERFIT_LR, TRAIN_HOST_TOKENS = 4, 3e-3, 33"),
 )
 
 
@@ -179,6 +186,9 @@ def _stub_cuda() -> None:
 
 
 def main() -> int:
+    # the rehearsal's operators are small: two intra-op threads run it as
+    # fast as all the cores do, and leave the rest to parallel test workers
+    torch.set_num_threads(min(2, torch.get_num_threads()))
     script = ROOT / "chip_smoke.py"
     src = script.read_text()
     for old, new in SHRINK:
