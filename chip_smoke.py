@@ -98,7 +98,26 @@ Phases, one JSON object per line on stdout:
    (``torch.profiler``), tokens/s, peak memory and the bounds: a decode step
    reads every weight and the requests' KV once at 3.35 TB/s, a prefill
    does 2 N tokens FLOPs at 989 TFLOP/s (bf16 dense tensor peak);
-9. the paper path (``paper``): the JAX package's random-access figures
+9. the sharded MoE path (``moe_sharded``): deepseek-v2-lite-16b at full
+   width and depth (27 layers, d_model 2,048, MLA, 64 routed experts top-6
+   and 2 shared; 16,210,198,528 parameters by ``param_counts``, bf16, drawn
+   from a generator seeded by ``--seed``) built by
+   ``build_model(cfg, mesh=make_host_mesh(), data_size=1,
+   use_sharded_moe=True)`` on a world-1 NCCL mesh.  First the one-rank
+   ``moe_apply_sharded`` against ``MoE`` on reduced grok-1 and reduced
+   deepseek-v2-lite (float32 within 1e-5, bf16 within 2e-2, nothing
+   dropped).  Then 4 random prompts of 2,048 tokens, every position's
+   logits, with the flag off and on over the same weights: at capacity
+   11.0 (>= slots / top_k, nothing may drop) the sharded layers on the
+   unsharded run's routes (``PinnedRouting``) within 2e-2 of max |logit|
+   with argmax agreement >= 99%, and >= 99% unpinned; at the config's own
+   1.25 the per-layer ``dropped`` and the logits' deviation.  It prints the
+   prefill's CUDA-event ms (mean, p50 of 5 after a warm-up; sharded and
+   unsharded), the ms in each collective summed over layers, peak bytes,
+   and ``BatchedEngine.generate(n_new=16, greedy=True)``'s ms per token,
+   beside the prefill's bound 2 N_active tokens / 989 TFLOP/s; the process
+   group ends with the phase;
+10. the paper path (``paper``): the JAX package's random-access figures
    (``benchmarks/run.py`` fig10, fig11, fig18) on the port.  Each of the
    eight §6.1 types from ``synth.paper_type(seed=1)`` at about 64 MiB of
    values is written as ``lance`` (device route), ``parquet`` (8 KiB pages)
@@ -114,13 +133,13 @@ Phases, one JSON object per line on stdout:
    device route's kernels, copies, launches and host fallbacks per type
    (var-width leaves and values over 31 bits decode on the host, as in the
    JAX package);
-10. the loader path (``loader``): smollm-360m's training input.  A token
+11. the loader path (``loader``): smollm-360m's training input.  A token
    file of 16,384 documents (``synth.token_corpus``, vocab 49,152, about 42M
    tokens) is written for the device route and for the numpy route; a
    ``TokenLoader`` over each yields 64 batches of 8 x 2,049 int32 tokens.
    The batches and ``batch_for_step`` must be equal; it prints each route's
    scan wall, tokens/s and the kernels' and copies' share;
-11. the train path (``train``): ``launch.train.train`` on smollm-360m at
+12. the train path (``train``): ``launch.train.train`` on smollm-360m at
    full width and depth (361,821,120 parameters, bf16, adamw, no remat,
    weights from a generator seeded 0): 6 steps of 8 x 2,048 positions, each
    batch from ``TokenLoader.batch_for_step`` over the driver's device-route
@@ -140,7 +159,7 @@ Phases, one JSON object per line on stdout:
    host enqueue ms, the host ms of each ``batch_for_step`` and the decode
    kernel's device ms in it, tokens/s, peak memory and the bound: 6 N
    tokens FLOPs at 989 TFLOP/s (attention left out);
-12. the kv path (``kv``): one layer's K pool of smollm-360m in a
+13. the kv path (``kv``): one layer's K pool of smollm-360m in a
    ``PagedKVCache`` (5 KV heads x 64 bf16 features: 81,920-byte block rows;
    16,384 blocks, 1.25 GiB).  256 requests with prompts of 512-8,192 tokens
    are prefilled, then 32 decode steps append one token to every request
@@ -149,10 +168,10 @@ Phases, one JSON object per line on stdout:
    a mirror of the appended values rounded to bf16 on the host, and the
    plain gather of the same store (tolerance 0); it prints gathers, bytes,
    wall and the kernel's share;
-13. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
+14. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
    ``kernel_bench`` size), unpacked on the card and checked against the
    packed values;
-14. each kernel at the largest input each path gave it (``take``, ``search``,
+15. each kernel at the largest input each path gave it (``take``, ``search``,
    ``tiered``, ``serve``, ``lm``, ``paper``, ``loader``, ``train``, ``kv`` and
    ``bitunpack``;
    ``ivf_topk`` per search step: the centroid ``probe``
@@ -169,7 +188,7 @@ Phases, one JSON object per line on stdout:
    is larger); and one more ``bitunpack`` row at 2**24 values of 11 bits
    (``"step": "2**24"``, no launches on any path: it shows whether the
    kernel reaches the bandwidth regime);
-15. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+16. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Between the sweep and the dataset, ``gather_streams`` holds the gather's
 per-launch work counter to its contract: the take shape's gather (16,429
@@ -196,6 +215,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -212,9 +232,11 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, reduced_config  # noqa: E402
 from repro_torch.configs.base import ShapeCfg  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import LMModel, build_model, model_flops, param_counts  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models.moe import MoE, moe_apply_sharded, shard_moe_params  # noqa: E402
 from repro_torch.models.attention import flash_attention  # noqa: E402
 from repro_torch.train import (clip_by_global_norm, loss_and_grads,  # noqa: E402
                                make_optimizer, make_train_step)
@@ -320,6 +342,19 @@ TRAIN_OVERFIT, TRAIN_OVERFIT_LR, TRAIN_HOST_TOKENS = 8, 3e-3, 65
 # optimizer alone on identical float32 gradients, each parameter and moment
 # as a share of its tensor's max |value|
 TRAIN_LOSS_NATS, TRAIN_GRAD_COS, TRAIN_OPT_TOL = 2e-2, 0.99, 1e-6
+# the moe_sharded path: deepseek-v2-lite-16b (configs :76) at full width and
+# depth in bf16, its MoE layers through the one-rank sharded MoE on a
+# world-1 MOE_BACKEND mesh; MOE_BATCH prompts of MOE_PROMPT tokens, first at
+# capacity MOE_NO_DROP_CF (>= slots / top_k = 64 / 6: no token can drop),
+# then at the config's own; MOE_TIMED timed prefills after one warm-up and
+# MOE_NEW generated tokens; the one-rank sharded MoE against MoE on these
+# reduced configs, MOE_SWEEP_B x MOE_SWEEP_S tokens
+MOE_ARCH, MOE_REDUCED, MOE_BACKEND = "deepseek-v2-lite-16b", False, "nccl"
+MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_TIMED = 4, 2048, 16, 5
+MOE_PARAMS = 16_210_198_528  # param_counts (2,663,120,896 active)
+MOE_NO_DROP_CF, MOE_BOUND, MOE_AGREE = 11.0, 2e-2, 0.99
+MOE_SWEEP = ("grok-1-314b", "deepseek-v2-lite-16b")
+MOE_SWEEP_B, MOE_SWEEP_S = 2, 64
 RTOL = 1e-6
 KERNEL_REPLACES = {
     "miniblock_decode": "src/repro/kernels/miniblock_decode.py:107",
@@ -1882,6 +1917,316 @@ def lm_path_phase(table, files, seed, probe):
 
 
 
+class ShardedProbe:
+    """Wraps ``models.moe.moe_apply_sharded`` to keep each call's
+    ``dropped``, and the four collectives it calls with CUDA events (the
+    device's timeline: a synchronous collective makes the current stream
+    wait for its own), summed per collective since the last ``collect``.
+    ``restore`` unwraps them."""
+
+    COLLECTIVES = ("all_to_all_single", "reduce_scatter_tensor", "all_gather_into_tensor",
+                   "all_reduce")
+
+    def __init__(self):
+        self.real = {n: getattr(dist, n) for n in self.COLLECTIVES}
+        self.real_apply = moe_module.moe_apply_sharded
+        self.events, self.dropped = [], []
+        for name, fn in self.real.items():
+            setattr(dist, name, self._timed(name, fn))
+        moe_module.moe_apply_sharded = self._apply
+
+    def _timed(self, name, fn):
+        def timed(*args, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*args, **kw)
+            e.record()
+            self.events.append((name, s, e))
+            return out
+
+        return timed
+
+    def _apply(self, *args, **kw):
+        out, aux = self.real_apply(*args, **kw)
+        self.dropped.append(aux["dropped"])
+        return out, aux
+
+    def collect(self):
+        """-> ({collective: ms}, [dropped per call]) since the last collect."""
+        torch.cuda.synchronize()
+        ms = {n: 0.0 for n in self.COLLECTIVES}
+        for name, s, e in self.events:
+            ms[name] += s.elapsed_time(e)
+        dropped = [float(d) for d in self.dropped]
+        self.events, self.dropped = [], []
+        return ms, dropped
+
+    def restore(self):
+        for name, fn in self.real.items():
+            setattr(dist, name, fn)
+        moe_module.moe_apply_sharded = self.real_apply
+
+
+def set_capacity(model, cf):
+    """Every MoE layer's capacity factor (the same weights)."""
+    cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(model.cfg.moe,
+                                                                 capacity_factor=cf))
+    for layer in model.layers:
+        layer.moe.cfg = cfg
+
+
+def logits_agreement(want, got):
+    """(max |want - got| / max |want|, the share of positions whose argmax
+    agrees), over (B, S, V) logits, one request at a time in float32."""
+    err = scale = 0.0
+    agree = 0
+    for w, g in zip(want, got):
+        w, g = w.float(), g.float()
+        err = max(err, float((w - g).abs().max()))
+        scale = max(scale, float(w.abs().max()))
+        agree += int((w.argmax(-1) == g.argmax(-1)).sum())
+    return err / scale, agree / (want.shape[0] * want.shape[1])
+
+
+def moe_sweep(mesh, dev):
+    """The one-rank sharded MoE against ``MoE`` on each MOE_SWEEP config
+    reduced, in float32 (within 1e-5 of max |out|) and bf16 (2e-2), at
+    capacity slots / top_k, where nothing can drop."""
+    out = {}
+    for arch in MOE_SWEEP:
+        for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-2)):
+            cfg = dataclasses.replace(reduced_config(arch), dtype=dtype)
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+            gen = torch.Generator(device=dev).manual_seed(7)
+            moe = MoE(cfg, getattr(torch, dtype), dev)
+            for mod in moe.modules():
+                if hasattr(mod, "init_"):
+                    mod.init_(gen)
+            x = torch.randn((MOE_SWEEP_B, MOE_SWEEP_S, cfg.d_model), generator=gen,
+                            device=dev).to(getattr(torch, dtype))
+            with torch.no_grad():
+                want, _ = moe(x)
+                got, aux = moe_apply_sharded(shard_moe_params(moe, mesh), cfg, x, mesh)
+            err = rel_err(want, got)
+            out[f"{arch} {dtype}"] = {"rel_err": err, "dropped": float(aux["dropped"]),
+                                      "bound": tol}
+            check(err <= tol and float(aux["dropped"]) == 0.0,
+                  f"moe_sharded {arch} {dtype}: sharded vs MoE {err} > {tol}")
+    return out
+
+
+class LayerTimer:
+    """CUDA events around every layer's ``attn`` and ``moe`` module (forward
+    hooks); ``remove(runs)`` unhooks and gives each part's ms per run,
+    summed over layers."""
+
+    PARTS = ("attn", "moe")
+
+    def __init__(self, model):
+        self.events = {p: [] for p in self.PARTS}
+        self.hooks = []
+        for layer in model.layers:
+            for part in self.PARTS:
+                mod = getattr(layer, part)
+                self.hooks.append(mod.register_forward_pre_hook(self._start))
+                self.hooks.append(mod.register_forward_hook(self._end(part)))
+
+    def _start(self, mod, args):
+        mod._t0 = torch.cuda.Event(enable_timing=True)
+        mod._t0.record()
+
+    def _end(self, part):
+        def hook(mod, args, out):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.events[part].append((mod._t0, e))
+            del mod._t0
+
+        return hook
+
+    def remove(self, runs):
+        for h in self.hooks:
+            h.remove()
+        torch.cuda.synchronize()
+        return {p: sum(s.elapsed_time(e) for s, e in ev) / runs for p, ev in self.events.items()}
+
+
+def moe_layers_vs_plain(model, mesh, layer_in):
+    """Each MoE layer's sharded output against its unsharded one on the
+    same input (the unsharded run's): max |diff| / max |out| and the share
+    of elements that differ."""
+    out = []
+    with torch.no_grad():
+        for layer, x in zip(model.layers, layer_in):
+            moe = layer.moe
+            want, _ = moe(x)
+            got, _ = moe_apply_sharded(shard_moe_params(moe, mesh), moe.cfg, x, mesh)
+            diff = (want.float() - got.float()).abs()
+            out.append({"rel_err": float(diff.max() / want.float().abs().max()),
+                        "differing": float((diff > 0).float().mean())})
+    return out
+
+
+def moe_sharded_path_phase(seed):
+    """The sharded MoE path (see the module docstring, item 9)."""
+    dev = torch.device("cuda")
+    ops.reset_counts()  # the moe_sharded path starts here
+    t = {}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s = time.perf_counter()
+    mesh = make_host_mesh(dev)
+    sharded_probe = ShardedProbe()
+    try:
+        check(dist.get_backend() == MOE_BACKEND and dist.get_world_size() == 1,
+              f"moe_sharded: a {dist.get_backend()} group of {dist.get_world_size()}")
+        sweep = moe_sweep(mesh, dev)
+        sharded_probe.collect()
+        t["sweep_s"] = time.perf_counter() - s
+
+        cfg = reduced_config(MOE_ARCH) if MOE_REDUCED else get_config(MOE_ARCH)
+        own_cf = cfg.moe.capacity_factor
+        s = time.perf_counter()
+        model = build_model(cfg, mesh=mesh, data_size=1, use_sharded_moe=True, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        t["init_s"] = time.perf_counter() - s
+        held = sum(p.numel() for p in model.parameters())
+        check(param_counts(cfg)[0] == MOE_PARAMS,
+              f"moe_sharded: {param_counts(cfg)[0]} parameters, not {MOE_PARAMS}")
+        weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        rng = np.random.default_rng(seed + 37)
+        prompts = rng.integers(1, cfg.vocab, (MOE_BATCH, MOE_PROMPT)).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+
+        # capacity MOE_NO_DROP_CF: the sharded layers against the unsharded
+        # ones on the same weights, unpinned, then on the unsharded run's
+        # routes (PinnedRouting): a bf16 router's near ties can flip
+        # between two orders of summation
+        s = time.perf_counter()
+        set_capacity(model, MOE_NO_DROP_CF)
+        pin = PinnedRouting()
+        model.use_sharded_moe = False
+        layer_in = []
+        hooks = [layer.moe.register_forward_pre_hook(
+            lambda mod, args: layer_in.append(args[0].detach().clone())) for layer in model.layers]
+        pin.record()
+        plain = model(batch)
+        routes = pin.recorded
+        pin.restore()
+        for h in hooks:
+            h.remove()
+        per_layer = moe_layers_vs_plain(model, mesh, layer_in)
+        del layer_in
+        check(max(r["rel_err"] for r in per_layer) <= MOE_BOUND,
+              f"moe_sharded: a layer's sharded MoE differs from MoE on the same input: "
+              f"{max(r['rel_err'] for r in per_layer)}")
+        model.use_sharded_moe = True
+        sharded = model(batch)
+        _, dropped_nodrop = sharded_probe.collect()
+        err_unpinned, agree_unpinned = logits_agreement(plain, sharded)
+        del sharded
+        pin.replay(routes)
+        sharded = model(batch)
+        moved = pin.moved
+        pin.restore()
+        sharded_probe.collect()
+        err_pinned, agree_pinned = logits_agreement(plain, sharded)
+        del sharded
+        check(max(dropped_nodrop) == 0.0,
+              f"moe_sharded: tokens dropped at capacity {MOE_NO_DROP_CF}")
+        check(err_pinned <= MOE_BOUND and agree_pinned >= MOE_AGREE,
+              f"moe_sharded: sharded vs unsharded at capacity {MOE_NO_DROP_CF}: "
+              f"{err_pinned} of max |logit|, argmax agreement {agree_pinned}")
+        check(agree_unpinned >= MOE_AGREE,
+              f"moe_sharded: unpinned argmax agreement {agree_unpinned} < {MOE_AGREE}")
+        check(bool(torch.isfinite(plain.float()).all()), "moe_sharded: non-finite logits")
+        t["no_drop_s"] = time.perf_counter() - s
+
+        # the config's own capacity: drops, the logits' deviation, timed prefills
+        s = time.perf_counter()
+        set_capacity(model, own_cf)
+        sharded = model(batch)
+        _, dropped_own = sharded_probe.collect()
+        err_own, agree_own = logits_agreement(plain, sharded)
+        del sharded, plain
+        times, coll = {}, {}
+        for name, on in (("sharded", True), ("unsharded", False)):
+            model.use_sharded_moe = on
+            model.prefill(batch)  # warm-up
+            sharded_probe.collect()
+            ms, per = [], []
+            parts = LayerTimer(model)
+            for _ in range(MOE_TIMED):
+                st = torch.cuda.Event(enable_timing=True)
+                en = torch.cuda.Event(enable_timing=True)
+                st.record()
+                model.prefill(batch)
+                en.record()
+                torch.cuda.synchronize()
+                ms.append(st.elapsed_time(en))
+                per.append(sharded_probe.collect()[0])
+            parts = parts.remove(MOE_TIMED)
+            times[name] = {"mean": float(np.mean(ms)), "p50": float(np.median(ms)),
+                           "max": float(np.max(ms)), "runs": ms, "parts_ms": parts}
+            if on:
+                coll = {c: float(np.mean([p[c] for p in per])) for c in per[0]}
+        t["timed_s"] = time.perf_counter() - s
+
+        # generation through the engine on the sharded layers
+        s = time.perf_counter()
+        model.use_sharded_moe = True
+        timer = StepTimer(model)
+        gen = BatchedEngine(model, max_new=MOE_NEW).generate(
+            {"tokens": prompts}, n_new=MOE_NEW, greedy=True)
+        decode_ms = timer.ms("decode_step")
+        timer.restore()
+        gen_s = time.perf_counter() - s
+        check(gen.tokens.shape == (MOE_BATCH, MOE_NEW) and (gen.tokens >= 0).all()
+              and (gen.tokens < cfg.vocab).all(), "moe_sharded: generated tokens out of range")
+        sharded_probe.collect()
+        t["generate_s"] = gen_s
+        peak = torch.cuda.max_memory_allocated()
+        del model
+    finally:
+        sharded_probe.restore()
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    launches = dict(ops.launches)  # the moe_sharded path ends here
+    check(not ops.fallbacks, f"moe_sharded: fell back to the host: {dict(ops.fallbacks)}")
+    flops = model_flops(cfg, ShapeCfg("moe_prefill", "prefill", MOE_PROMPT, MOE_BATCH))
+    dec = np.asarray(decode_ms)
+    emit({"phase": "moe_sharded", "arch": cfg.name, "reduced": MOE_REDUCED, "dtype": cfg.dtype,
+          "backend": MOE_BACKEND, "world": 1, "parameters": held,
+          "param_counts": list(param_counts(cfg)), "weight_bytes": weight_bytes,
+          "peak_bytes": peak - base, "batch": MOE_BATCH, "prompt": MOE_PROMPT,
+          "no_drop": {"capacity_factor": MOE_NO_DROP_CF, "max_dropped": max(dropped_nodrop),
+                      "per_layer": {"max_rel_err": max(r["rel_err"] for r in per_layer),
+                                    "max_differing": max(r["differing"] for r in per_layer),
+                                    "layers": per_layer},
+                      "unpinned": {"rel_err": err_unpinned, "argmax_agree": agree_unpinned},
+                      "pinned": {"rel_err": err_pinned, "argmax_agree": agree_pinned,
+                                 "moved_tokens": moved},
+                      "bound": MOE_BOUND, "agree_bound": MOE_AGREE},
+          "own": {"capacity_factor": own_cf,
+                  "dropped": {"mean": float(np.mean(dropped_own)),
+                              "max": float(np.max(dropped_own)), "per_layer": dropped_own},
+                  "vs_no_drop_unsharded": {"rel_err": err_own, "argmax_agree": agree_own}},
+          "prefill_ms": times, "collective_ms": coll,
+          "collective_ms_total": float(sum(coll.values())),
+          "generate": {"new": MOE_NEW, "wall_s": gen_s, "ms_per_token": gen_s * 1e3 / MOE_NEW,
+                       "decode_ms": {"mean": float(dec.mean()), "p50": float(np.median(dec)),
+                                     "max": float(dec.max()), "steps": len(dec)}},
+          "bounds": {"prefill_ms": flops / BF16_FLOPS_PER_S * 1e3, "prefill_flops": flops,
+                     "bf16_flops_per_s": BF16_FLOPS_PER_S},
+          "sweep": sweep, "seconds": t, "launches": launches})
+    return launches
+
+
+
 def paper_encodings(tname):
     """The encodings each type is written in (label, options): Lance on the
     device route (its numpy twin reads the same file), Parquet with 8 KiB
@@ -1956,7 +2301,7 @@ def paper_take(label, fb, column, rows, source, probe, **fields):
 
 def paper_path_phase(seed, probe):
     """The paper's random-access comparison on the port (see the module
-    docstring, item 8)."""
+    docstring, item 10)."""
     rng = np.random.default_rng(seed + 17)
     ops.reset_counts()  # the paper path starts here
     rates = {}
@@ -2375,7 +2720,7 @@ def train_family_sweep(seed, dev):
 
 
 def train_path_phase(seed, probe):
-    """The training path (see the module docstring, item 11)."""
+    """The training path (see the module docstring, item 12)."""
     dev = torch.device("cuda")
     cfg = reduced_config(TRAIN_ARCH) if TRAIN_REDUCED else get_config(TRAIN_ARCH)
     t = {}
@@ -2672,8 +3017,8 @@ def kernel_case(name, a, kw):
         "operations": n_vals, "ops_per_s": INT_OPS_PER_S}
 
 
-PATH_ORDER = {"take": 0, "search": 1, "tiered": 2, "serve": 3, "lm": 4, "paper": 5,
-              "loader": 6, "train": 7, "kv": 8, "bitunpack": 9}
+PATH_ORDER = {"take": 0, "search": 1, "tiered": 2, "serve": 3, "lm": 4, "moe_sharded": 5,
+              "paper": 6, "loader": 7, "train": 8, "kv": 9, "bitunpack": 10}
 
 
 def measure_phase(probe, smallest, launches, sweep, rng):
@@ -2768,6 +3113,8 @@ def main() -> int:
     launches["serve"] = timed("serve", serve_path_phase, table, files, args.seed, probe)
     probe.path = "lm"
     launches["lm"] = timed("lm", lm_path_phase, table, files, args.seed, probe)
+    probe.path = "moe_sharded"
+    launches["moe_sharded"] = timed("moe_sharded", moe_sharded_path_phase, args.seed)
     del table, files
     probe.path = "paper"
     launches["paper"] = timed("paper", paper_path_phase, args.seed, probe)

@@ -44,28 +44,31 @@ class DatasetReader:
     ``files`` is the ordered fragment list (raw file bytes).  ``store``
     accepts the same specs as :func:`repro_torch.store.make_store`, resolved
     once over the dataset's global disk, so "tiered" gives the whole dataset
-    a single NVMe budget.  ``decode`` and ``device`` are
+    a single NVMe budget.  ``decode``, ``dict_cached`` and ``device`` are
     passed to every fragment's :class:`~repro_torch.core.file.FileReader`:
-    the device routes run on CUDA unless ``device="cpu"``.  ``tracer`` is
+    ``dict_cached`` keeps a Parquet column's dictionary page in the search
+    cache, and the device routes run on CUDA unless ``device="cpu"``.  ``tracer`` is
     the IO path's (:class:`~repro_torch.obs.Tracer`; None traces nothing).
     """
 
     def __init__(self, files: Sequence[bytes], store=None,
                  queue_depth: int = 256, readahead="auto",
-                 decode: Optional[str] = None, device=None, tracer=None):
+                 decode: Optional[str] = None, dict_cached: bool = False,
+                 tracer=None, *, device=None):
         from ..store import IOScheduler, make_store
 
         manifest, disk = build_dataset_disk(files)
         scheduler = IOScheduler(make_store(store, disk),
                                 queue_depth=queue_depth, readahead=readahead,
                                 tracer=tracer)
-        self._bind(manifest, disk, scheduler, decode=decode, device=device)
+        self._bind(manifest, disk, scheduler, decode=decode,
+                   dict_cached=dict_cached, device=device)
 
     @classmethod
     def from_manifest(cls, manifest: Manifest, disk, scheduler,
-                      decode: Optional[str] = None, device=None,
-                      readers: Optional[List[FileReader]] = None,
-                      ) -> "DatasetReader":
+                      decode: Optional[str] = None, dict_cached: bool = False,
+                      readers: Optional[List[FileReader]] = None, *,
+                      device=None) -> "DatasetReader":
         """View an already-materialized dataset (a manifest *version* over a
         shared disk + scheduler) without rebuilding the address space.  The
         dataset writer uses this for time travel: one reader per committed
@@ -73,12 +76,12 @@ class DatasetReader:
         pre-built per-fragment ``FileReader``\\ s (cached by the writer so a
         fragment's footer is parsed once, not once per version)."""
         self = cls.__new__(cls)
-        self._bind(manifest, disk, scheduler, decode=decode, device=device,
-                   readers=readers)
+        self._bind(manifest, disk, scheduler, decode=decode,
+                   dict_cached=dict_cached, device=device, readers=readers)
         return self
 
-    def _bind(self, manifest, disk, scheduler, decode=None, device=None,
-              readers=None):
+    def _bind(self, manifest, disk, scheduler, decode=None, dict_cached=False,
+              device=None, readers=None):
         self.manifest = manifest
         self.disk = disk
         self.store = scheduler.store
@@ -87,7 +90,7 @@ class DatasetReader:
         self.fragments: List[FileReader] = readers if readers is not None else [
             FileReader(DiskView(self.disk, f.base, f.nbytes),
                        scheduler=self.scheduler, base=f.base,
-                       decode=decode, device=device)
+                       decode=decode, dict_cached=dict_cached, device=device)
             for f in self.manifest.fragments
         ]
         self.columns = self.fragments[0].columns

@@ -65,9 +65,10 @@ class DatasetWriter:
     policy instance, or ``None`` (no policy attached: writes behave
     write-through).  ``files`` optionally seeds the dataset with existing
     fragment bytes (ingested through the write path and committed as v1).
-    ``decode`` and ``device`` are passed to every fragment's
-    :class:`~repro_torch.core.file.FileReader`: the device routes run on
-    CUDA unless ``device="cpu"``.  ``tracer`` is the IO path's
+    ``decode``, ``dict_cached`` and ``device`` are passed to every
+    fragment's :class:`~repro_torch.core.file.FileReader`: ``dict_cached``
+    keeps a Parquet column's dictionary page in the search cache, and the
+    device routes run on CUDA unless ``device="cpu"``.  ``tracer`` is the IO path's
     (:class:`~repro_torch.obs.Tracer`; None traces nothing): appends,
     commits and compactions open spans on it, and a simulated crash is an
     instant.
@@ -76,7 +77,8 @@ class DatasetWriter:
     def __init__(self, files: Sequence[bytes] = (), store="tiered",
                  flush="write-back", opts: Optional[WriteOptions] = None,
                  queue_depth: int = 256, readahead="auto",
-                 decode: Optional[str] = None, device=None, tracer=None):
+                 decode: Optional[str] = None, dict_cached: bool = False,
+                 tracer=None, *, device=None):
         self.device = resolve_device(device)
         self.opts = opts or WriteOptions()
         self.disk = Disk(np.zeros(0, np.uint8))
@@ -88,6 +90,7 @@ class DatasetWriter:
                                      readahead=readahead, tracer=tracer)
         self.tracer = self.scheduler.tracer
         self._decode = decode
+        self._dict_cached = dict_cached
         self._columns: Optional[List[Dict]] = None
         self.fragments: List[Fragment] = []   # live (to-be-committed) list
         self._pending: List[Fragment] = []    # appended since last commit
@@ -123,6 +126,7 @@ class DatasetWriter:
         self.store = parent.store
         self.scheduler = parent.scheduler
         self._decode = decode if decode is not None else parent._decode
+        self._dict_cached = parent._dict_cached
         self._columns = None
         self.fragments = []
         self._pending = []
@@ -229,7 +233,8 @@ class DatasetWriter:
         if fr is None:
             fr = FileReader(DiskView(self.disk, frag.base, frag.nbytes),
                             scheduler=self.scheduler, base=frag.base,
-                            decode=self._decode, device=self.device)
+                            decode=self._decode, dict_cached=self._dict_cached,
+                            device=self.device)
             self._frag_readers[frag.id] = fr
         return fr
 

@@ -1,2 +1,2 @@
-# Launchers: the serving driver (serve.py) and the training driver
-# (train.py).  The mesh and the dry run wait for ROADMAP.md, Queue 1 item 8c.
+# Launchers: the serving driver (serve.py), the training driver (train.py)
+# and the meshes (mesh.py).

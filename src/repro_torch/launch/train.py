@@ -18,9 +18,9 @@ Not carried, and refused with ``NotImplementedError``: checkpointing
 (``ckpt_dir``, ``ckpt_every``) and fault injection with restart
 (``inject_failure_at``), which the reference builds on ``repro.dist``, a
 package its tree does not have (ROADMAP.md, "Not to port"); and the
-production mesh (``mesh_kind="production"``), which waits for ROADMAP.md,
-Queue 1 item 8c.  Steps run on ``device``: CUDA unless the caller names
-the CPU, raising without a card.
+production mesh (``mesh_kind="production"``), whose reference path shards
+its parameters through ``repro.dist.sharding`` as well.  Steps run on
+``device``: CUDA unless the caller names the CPU, raising without a card.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ from ..train.train_loop import make_train_step
 
 _NO_DIST = ("{} needs the reference's repro.dist (checkpointing, heartbeat and restart), "
             "which its tree does not have (ROADMAP.md, 'Not to port')")
-_NO_MESH = "the production mesh is not ported yet (ROADMAP.md, Queue 1 item 8c)"
+_NO_MESH = ("the production mesh shards through the reference's repro.dist.sharding, "
+            "which its tree does not have (ROADMAP.md, 'Not to port')")
 
 
 def train(arch: str, *, reduced: bool = True, steps: int = 50, batch: int = 8,

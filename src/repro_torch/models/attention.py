@@ -16,9 +16,11 @@ Decode KV caches hold the head/feature dims flattened (``Hkv*head_dim``), as
 the reference's do, and are preallocated to a capacity: a decode step writes
 its token in place at the cache's ``length`` and raises when the capacity is
 used up (the reference's ``dynamic_update_slice`` would clamp the index and
-overwrite the last slot).  The reference's ``PartitionSpec`` helpers
-(``gqa_cache_spec``, ``mla_cache_spec``) are not carried (ROADMAP.md, Queue 1
-item 8c).
+overwrite the last slot).  The specs are plain data (``common.py``):
+``gqa_param_specs``, ``mla_param_specs`` and ``cross_attn_param_specs`` are
+the spec halves of the reference's ``init_gqa``, ``init_mla`` and
+``init_cross_attn``; ``gqa_cache_spec`` and ``mla_cache_spec`` its per-layer
+cache axes.
 """
 
 from __future__ import annotations
@@ -29,10 +31,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .common import Dense, apply_rope, rope_freqs
+from .common import DP, TP, Dense, TensorSpec, apply_rope, dense_spec, join_specs, rope_freqs
 
 __all__ = ["NEG_INF", "flash_attention", "decode_attention", "GQA", "MLA",
-           "CrossAttention", "cache_write"]
+           "CrossAttention", "cache_write", "gqa_param_specs", "mla_param_specs",
+           "cross_attn_param_specs", "gqa_cache_spec", "mla_cache_spec"]
 
 NEG_INF = -1e30
 
@@ -217,6 +220,20 @@ class GQA(nn.Module):
         return torch.matmul(o.reshape(B, S, H * hd), self.o.w), new_cache
 
 
+def gqa_param_specs(cfg, dtype):
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kv = lambda: dense_spec(d, Hkv * hd, dtype, bias=cfg.qkv_bias, in_axis=DP)  # noqa: E731
+    return join_specs(q=dense_spec(d, H * hd, dtype, bias=cfg.qkv_bias, in_axis=DP),
+                      k=kv(), v=kv(), o=dense_spec(H * hd, d, dtype, in_axis=TP, out_axis=DP))
+
+
+def gqa_cache_spec(cfg, batch_sharded: bool):
+    """Axes of the per-layer KV cache (stacked later): batch over DP, or,
+    for a long-context single request, the sequence over ``data`` (SP)."""
+    bs = (DP, None, TP) if batch_sharded else (None, "data", TP)
+    return {"k": bs, "v": bs}
+
+
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V2 multi-head latent attention)
 # ---------------------------------------------------------------------------
@@ -287,6 +304,23 @@ class MLA(nn.Module):
         return torch.matmul(o, self.o.w), new_cache
 
 
+def mla_param_specs(cfg, dtype):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv, r = m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, m.kv_lora_rank
+    return join_specs(q=dense_spec(d, H * (dn + dr), dtype, in_axis=DP),
+                      dkv=dense_spec(d, r + dr, dtype, in_axis=DP, out_axis=None),
+                      uk=dense_spec(r, H * dn, dtype, in_axis=None, out_axis=TP),
+                      uv=dense_spec(r, H * dv, dtype, in_axis=None, out_axis=TP),
+                      o=dense_spec(H * dv, d, dtype, in_axis=TP, out_axis=DP))
+
+
+def mla_cache_spec(cfg, batch_sharded: bool):
+    if batch_sharded:
+        return {"ckv": (DP, None, None), "kpe": (DP, None, None)}
+    return {"ckv": (None, "data", None), "kpe": (None, "data", None)}
+
+
 # ---------------------------------------------------------------------------
 # Gated cross-attention (Llama-3.2-Vision style; the enc-dec decoder's too)
 # ---------------------------------------------------------------------------
@@ -338,3 +372,13 @@ class CrossAttention(nn.Module):
         o = torch.matmul(o.reshape(B, S, H * hd), self.o.w)
         gate = torch.tanh(self.gate).to(x.dtype)
         return o * gate, new_cache
+
+
+def cross_attn_param_specs(cfg, dtype):
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shapes, axes = join_specs(q=dense_spec(d, H * hd, dtype, in_axis=DP),
+                              k=dense_spec(d, Hkv * hd, dtype, in_axis=DP),
+                              v=dense_spec(d, Hkv * hd, dtype, in_axis=DP),
+                              o=dense_spec(H * hd, d, dtype, in_axis=TP, out_axis=DP))
+    shapes["gate"], axes["gate"] = TensorSpec((), torch.float32), ()
+    return shapes, axes

@@ -8,25 +8,93 @@ onto the other by name.  The ``*_init_`` functions draw the reference's
 distributions from an explicit ``torch.Generator``; the values differ from
 JAX's, the distributions do not.
 
-The reference's ``PartitionSpec`` trees are not carried: the port shards
-nothing yet (ROADMAP.md, Queue 1 item 8c).
+The reference's ``init_*`` functions also return a ``PartitionSpec`` tree;
+the port keeps those specs as plain data, apart from the modules: a
+``TensorSpec(shape, dtype)`` per leaf (``.meta()`` gives a tensor on the
+``meta`` device, which allocates nothing) and a tuple of axes per leaf,
+the reference's ``tuple(PartitionSpec(...))``: mesh axis names, ``None``,
+tuples of names, and the logical tokens ``DP`` (the data-parallel axes)
+and ``TP`` (the tensor-parallel axis).  ``dense_spec``,
+``rmsnorm_spec`` and ``embed_spec`` are the specs of ``dense_init``,
+``rmsnorm_init`` and ``embed_init``; ``join_specs`` nests named
+(shapes, axes) pairs and ``stack_specs`` adds the leading layer axes of the
+reference's ``lax.scan`` stacks.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 __all__ = [
+    "DP", "TP", "TensorSpec", "dense_spec", "rmsnorm_spec", "embed_spec", "stack_specs",
+    "join_specs", "map_leaves",
     "Dense", "RMSNorm", "Embed", "MLP", "dense_init_", "embed_init_", "rmsnorm_init_",
     "normal_", "rmsnorm", "rope_freqs", "apply_rope", "dtype_of", "mlp_apply",
 ]
 
 
+# logical axis tokens, the reference's (resolved by its sharding policy:
+# DP to the data-parallel mesh axes, TP to "model")
+DP = "__dp__"
+TP = "__tp__"
+
+
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """A tensor's shape and dtype, the port's ``jax.ShapeDtypeStruct``."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    def meta(self) -> torch.Tensor:
+        """An empty tensor of this spec on the ``meta`` device (no storage)."""
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
+
+
+def dense_spec(d_in: int, d_out: int, dtype, bias: bool = False, in_axis=None,
+               out_axis=TP) -> Tuple[Dict, Dict]:
+    """The specs of the reference's ``dense_init``: column parallel by default."""
+    shapes = {"w": TensorSpec((d_in, d_out), dtype)}
+    axes = {"w": (in_axis, out_axis)}
+    if bias:
+        shapes["b"] = TensorSpec((d_out,), dtype)
+        axes["b"] = (out_axis,)
+    return shapes, axes
+
+
+def rmsnorm_spec(d: int, dtype) -> Tuple[Dict, Dict]:
+    return {"scale": TensorSpec((d,), dtype)}, {"scale": (None,)}
+
+
+def embed_spec(vocab: int, d: int, dtype) -> Tuple[Dict, Dict]:
+    return {"w": TensorSpec((vocab, d), dtype)}, {"w": (TP, None)}
+
+
+def map_leaves(tree: Dict, fn) -> Dict:
+    """``fn`` over every leaf (non-dict value) of a nested dict."""
+    return {k: map_leaves(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def join_specs(**named: Tuple[Dict, Dict]) -> Tuple[Dict, Dict]:
+    """{name: (shapes, axes)} -> (shapes tree, axes tree)."""
+    return ({k: v[0] for k, v in named.items()}, {k: v[1] for k, v in named.items()})
+
+
+def stack_specs(specs: Tuple[Dict, Dict], *lead: int) -> Tuple[Dict, Dict]:
+    """(shapes, axes) of one layer -> those of ``lead`` stacked layers: each
+    shape gains the leading dims ``lead``, each axes tuple a ``None`` per
+    dim, as the reference's ``_stack`` (``P(None, *spec)``)."""
+    shapes, axes = specs
+    return (map_leaves(shapes, lambda t: TensorSpec(tuple(lead) + t.shape, t.dtype)),
+            map_leaves(axes, lambda a: (None,) * len(lead) + a))
 
 
 def normal_(t: torch.Tensor, generator: torch.Generator, scale: float) -> None:

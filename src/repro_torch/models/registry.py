@@ -1,38 +1,50 @@
-"""Architecture registry: config -> model builder, and the analytic counts.
+"""Architecture registry: config -> model builder, input and cache specs,
+and the analytic counts.
 
 The port's copy of the reference's ``models/registry.py``: ``build_model``
-(with an explicit ``device`` and ``generator``), ``supports_shape``,
-``param_counts`` and ``model_flops``.  The dry-run stand-ins ``input_specs``
-and ``cache_specs`` (``ShapeDtypeStruct`` and ``PartitionSpec`` trees) raise:
-they wait for ROADMAP.md, Queue 1 item 8c.
+(with the reference's mesh, batch axes, data size and sharded-MoE flag, and
+an explicit ``device`` and ``generator``), ``supports_shape``,
+``input_specs``, ``cache_specs``, ``param_counts`` and ``model_flops``, and
+``param_specs`` (the spec tree of the reference's ``LMModel.init``).
+
+The dry-run stand-ins are plain data: where the reference gives
+``jax.ShapeDtypeStruct`` leaves and ``PartitionSpec`` trees, the port gives
+``TensorSpec(shape, dtype)`` leaves (``.meta()`` makes a tensor on the
+``meta`` device, allocating nothing) and tuples of axes equal to the
+reference's ``tuple(PartitionSpec)``, with its logical tokens ``DP`` and
+``TP``.  Modality frontends are stubs as in the reference: the VLM receives
+precomputed patch embeddings, the audio model precomputed frame embeddings.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig, ShapeCfg
 from ..kernels import ops
-from .transformer import LMModel
+from .attention import gqa_cache_spec, mla_cache_spec
+from .common import DP, TensorSpec, map_leaves
+from .ssm import mamba2_cache_spec
+from .transformer import LMModel, param_specs
 
-__all__ = ["build_model", "input_specs", "cache_specs", "supports_shape", "model_flops",
-           "param_counts"]
-
-_DRYRUN = "the dry-run specs are not ported yet (ROADMAP.md, Queue 1 item 8c)"
+__all__ = ["build_model", "input_specs", "cache_specs", "param_specs", "supports_shape",
+           "model_flops", "param_counts"]
 
 
-def build_model(cfg: ModelConfig, device=None,
+def build_model(cfg: ModelConfig, mesh=None, batch_axes=("data",), data_size: int = 16,
+                use_sharded_moe: bool = False, *, device=None,
                 generator: Optional[torch.Generator] = None) -> LMModel:
     """An initialised model on ``device`` (CUDA unless the caller names the
     CPU; raises without a card), drawn from ``generator`` (default: one on
-    the device seeded 0).  The reference's mesh, batch axes and sharded MoE
-    wait for ROADMAP.md, Queue 1 item 8c."""
+    the device seeded 0).  ``mesh``, ``batch_axes``, ``data_size`` and
+    ``use_sharded_moe`` are the reference's (``LMModel``)."""
     dev = ops.resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    return LMModel(cfg, device=dev).init(generator)
+    return LMModel(cfg, device=dev, mesh=mesh, use_sharded_moe=use_sharded_moe,
+                   data_size=data_size, batch_axes=batch_axes).init(generator)
 
 
 def supports_shape(cfg: ModelConfig, shape: ShapeCfg) -> Tuple[bool, str]:
@@ -42,12 +54,103 @@ def supports_shape(cfg: ModelConfig, shape: ShapeCfg) -> Tuple[bool, str]:
     return True, ""
 
 
-def input_specs(cfg: ModelConfig, shape: ShapeCfg):
-    raise NotImplementedError(_DRYRUN)
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeCfg) -> Dict[str, Tuple[TensorSpec, tuple]]:
+    """{input name: (TensorSpec, axes)} of every model input of a cell."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+    out: Dict[str, Tuple[TensorSpec, tuple]] = {}
+    if shape.kind == "train":
+        out["tokens"] = (TensorSpec((B, S + 1), torch.int32), (DP, None))
+    elif shape.kind == "prefill":
+        out["tokens"] = (TensorSpec((B, S), torch.int32), (DP, None))
+    else:  # decode: one new token against a cache of length S
+        out["tokens"] = (TensorSpec((B, 1), torch.int32), (DP, None))
+    if cfg.family == "vlm" and shape.kind != "decode":
+        out["vision_embeds"] = (TensorSpec((B, cfg.n_vision_tokens, cfg.d_vision), dt),
+                                (DP, None, None))
+    if cfg.family == "audio" and shape.kind != "decode":
+        out["frames"] = (TensorSpec((B, S, cfg.d_audio), dt), (DP, None, None))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# caches (for decode dry-runs and the serving engine)
+# ---------------------------------------------------------------------------
+
+
+def _lead(tree, n: int = 1):
+    """Every axes tuple of ``tree`` with ``n`` leading ``None`` axes."""
+    return map_leaves(tree, lambda a: (None,) * n + a)
+
+
+def _mamba_shapes(cfg, L, B, dt):
+    s = cfg.ssm
+    H, Pd, N = cfg.ssm_heads, s.head_dim, s.d_state
+    di, GN, K1 = cfg.d_inner, s.n_groups * s.d_state, s.d_conv - 1
+    return {"state": TensorSpec((L, B, H, N, Pd), torch.float32),
+            "conv": {"x": TensorSpec((L, B, K1, di), dt), "B": TensorSpec((L, B, K1, GN), dt),
+                     "C": TensorSpec((L, B, K1, GN), dt)}}
+
+
+def _kv(lead, B, S, f, dt):
+    return {"k": TensorSpec(lead + (B, S, f), dt), "v": TensorSpec(lead + (B, S, f), dt)}
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeCfg, dp_total: int):
-    raise NotImplementedError(_DRYRUN)
+    """-> (TensorSpec tree, axes tree) of the decode cache, in the
+    reference's stacked layout.
+
+    ``dp_total``: number of chips on the batch axes; batches smaller than it
+    flip the cache to sequence sharding (SP / flash-decoding combine)."""
+    B, S = shape.global_batch, shape.seq_len
+    L = cfg.n_layers
+    dt = getattr(torch, cfg.dtype)
+    batch_sharded = B >= dp_total and B % dp_total == 0
+    length = TensorSpec((), torch.int32)
+    f = cfg.n_kv_heads * cfg.head_dim
+
+    if cfg.family in ("dense", "moe"):
+        if cfg.mla is not None:
+            m = cfg.mla
+            shapes = {"layers": {"ckv": TensorSpec((L, B, S, m.kv_lora_rank), dt),
+                                 "kpe": TensorSpec((L, B, S, m.qk_rope_dim), dt)},
+                      "length": length}
+            return shapes, {"layers": _lead(mla_cache_spec(cfg, batch_sharded)), "length": ()}
+        return ({"layers": _kv((L,), B, S, f, dt), "length": length},
+                {"layers": _lead(gqa_cache_spec(cfg, batch_sharded)), "length": ()})
+
+    if cfg.family == "ssm":
+        return ({"layers": _mamba_shapes(cfg, L, B, dt), "length": length},
+                {"layers": _lead(mamba2_cache_spec(cfg, batch_sharded)), "length": ()})
+
+    if cfg.family == "hybrid":
+        n_shared = cfg.n_layers // cfg.shared_attn_every
+        shapes = {"mamba": _mamba_shapes(cfg, L, B, dt), "shared": _kv((n_shared,), B, S, f, dt),
+                  "length": length}
+        return shapes, {"mamba": _lead(mamba2_cache_spec(cfg, batch_sharded)),
+                        "shared": _lead(gqa_cache_spec(cfg, batch_sharded)), "length": ()}
+
+    if cfg.family == "vlm":
+        n_cross = cfg.n_layers // cfg.cross_attn_every
+        per = cfg.cross_attn_every - 1
+        aspec = gqa_cache_spec(cfg, batch_sharded)
+        shapes = {"self": _kv((n_cross, per), B, S, f, dt),
+                  "cross": _kv((n_cross,), B, cfg.n_vision_tokens, f, dt), "length": length}
+        return shapes, {"self": _lead(aspec, 2), "cross": _lead(aspec), "length": ()}
+
+    if cfg.family == "audio":
+        L = cfg.n_dec_layers
+        aspec = gqa_cache_spec(cfg, batch_sharded)
+        shapes = {"self": _kv((L,), B, S, f, dt), "cross": _kv((L,), B, S, f, dt),
+                  "length": length}
+        return shapes, {"self": _lead(aspec), "cross": _lead(aspec), "length": ()}
+
+    raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------

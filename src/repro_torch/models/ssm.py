@@ -7,8 +7,8 @@ recurrence carrying the (H, N, P) state, in chunk order — and a single-step
 state update for decode.  The "KV cache" of an SSM is its fixed-width state
 plus the causal conv's last K-1 inputs, so it needs no capacity.  Projections
 are split (z/x/B/C/dt) as in the reference; the cumulative decays are
-float32.  ``mamba2_cache_spec`` (a ``PartitionSpec`` tree) is not carried
-(ROADMAP.md, Queue 1 item 8c).
+float32.  ``mamba2_param_specs`` and ``mamba2_cache_spec`` are the
+reference's parameter and cache specs as plain data (``common.py``).
 """
 
 from __future__ import annotations
@@ -18,9 +18,9 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from .common import Dense, RMSNorm, normal_
+from .common import DP, TP, Dense, RMSNorm, TensorSpec, dense_spec, join_specs, normal_
 
-__all__ = ["Mamba2", "causal_conv", "ssd_chunked"]
+__all__ = ["Mamba2", "causal_conv", "ssd_chunked", "mamba2_param_specs", "mamba2_cache_spec"]
 
 
 class _Conv(nn.Module):
@@ -205,3 +205,29 @@ class Mamba2(nn.Module):
         g = (gf * torch.rsqrt(var + cfg.norm_eps)).to(x.dtype) * self.norm.scale
         return torch.matmul(g, self.out.w), new_cache
 
+
+def mamba2_param_specs(cfg, dtype):
+    """The spec half of the reference's ``init_mamba2``."""
+    s = cfg.ssm
+    d, di, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    GN = s.n_groups * s.d_state
+    f32 = torch.float32
+    shapes, axes = join_specs(in_z=dense_spec(d, di, dtype, in_axis=DP),
+                              in_x=dense_spec(d, di, dtype, in_axis=DP),
+                              in_B=dense_spec(d, GN, dtype, in_axis=DP, out_axis=None),
+                              in_C=dense_spec(d, GN, dtype, in_axis=DP, out_axis=None),
+                              in_dt=dense_spec(d, H, dtype, in_axis=DP, out_axis=TP),
+                              out=dense_spec(di, d, dtype, in_axis=TP, out_axis=DP))
+    for name, C, ax in (("conv_x", di, TP), ("conv_B", GN, None), ("conv_C", GN, None)):
+        shapes[name] = {"w": TensorSpec((s.d_conv, C), dtype), "b": TensorSpec((C,), dtype)}
+        axes[name] = {"w": (None, ax), "b": (ax,)}
+    for name in ("A_log", "D", "dt_bias"):
+        shapes[name], axes[name] = TensorSpec((H,), f32), (TP,)
+    shapes["norm"], axes["norm"] = {"scale": TensorSpec((di,), dtype)}, {"scale": (TP,)}
+    return shapes, axes
+
+
+def mamba2_cache_spec(cfg, batch_sharded: bool):
+    bs = DP if batch_sharded else None
+    return {"state": (bs, TP, None, None),
+            "conv": {"x": (bs, None, TP), "B": (bs, None, None), "C": (bs, None, None)}}

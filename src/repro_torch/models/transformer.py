@@ -36,6 +36,19 @@ graph.  Training makes them trainable (``model.requires_grad_(True)``, which
 autograd on.  ``prefill``, ``decode_step`` and ``forward`` run under
 ``torch.inference_mode`` whatever the parameters' flag.
 
+``param_specs(cfg, data_size)`` is the spec tree the reference's ``init``
+returns beside its params, as plain data (``common.TensorSpec`` shapes and
+axes tuples, in the reference's nested, layer-stacked layout; nothing is
+allocated).
+
+With ``use_sharded_moe`` and a ``mesh`` (``launch/mesh.py``), the MoE layers
+run ``moe.moe_apply_sharded`` on this rank's expert slices, as the
+reference's ``_moe_ffn`` runs it under ``shard_map``.  Each rank runs the
+model on its own batch shard: the port splits the batch by process, where
+the reference splits one global batch over ``batch_axes``.  The flag can be
+turned off and on again on the same weights.  The sharded path computes
+forward only (ROADMAP.md, Queue 1, 8c-4).
+
 Per-layer remat follows ``cfg.remat`` in train mode, as the reference's
 ``_remat``: ``"full"`` runs each layer under ``torch.utils.checkpoint``
 (non-reentrant), so backward recomputes its activations; ``"dots"`` (the
@@ -55,12 +68,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .attention import GQA, MLA, CrossAttention
-from .common import MLP, Dense, Embed, RMSNorm, dtype_of, mlp_apply
-from .moe import MoE
-from .ssm import Mamba2
+from .attention import (GQA, MLA, CrossAttention, cross_attn_param_specs, gqa_param_specs,
+                        mla_param_specs)
+from .common import (DP, MLP, TP, Dense, Embed, RMSNorm, dense_spec, dtype_of, embed_spec,
+                     join_specs, mlp_apply, rmsnorm_spec, stack_specs)
+from .moe import MoE, moe_param_specs
+from .ssm import Mamba2, mamba2_param_specs
 
-__all__ = ["LMModel", "MLP", "mlp_apply"]
+__all__ = ["LMModel", "MLP", "mlp_apply", "param_specs"]
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +167,69 @@ class DecoderLayer(DenseLayer):
 
 
 # ---------------------------------------------------------------------------
+# specs: the reference's init spec tree, as plain data
+# ---------------------------------------------------------------------------
+
+
+def _mlp_specs(d, ff, dtype):
+    return join_specs(wi=dense_spec(d, ff, dtype, in_axis=DP),
+                      wg=dense_spec(d, ff, dtype, in_axis=DP),
+                      wo=dense_spec(ff, d, dtype, in_axis=TP, out_axis=DP))
+
+
+def _dense_layer_specs(cfg, dtype, cross: bool = False, use_mla: bool = False):
+    if cross:
+        attn = cross_attn_param_specs(cfg, dtype)
+    else:
+        attn = (mla_param_specs if use_mla else gqa_param_specs)(cfg, dtype)
+    return join_specs(n1=rmsnorm_spec(cfg.d_model, dtype), attn=attn,
+                      n2=rmsnorm_spec(cfg.d_model, dtype),
+                      mlp=_mlp_specs(cfg.d_model, cfg.d_ff, dtype))
+
+
+def param_specs(cfg: ModelConfig, data_size: int = 16):
+    """-> (``TensorSpec`` tree, axes tree) of the reference's ``LMModel.init``
+    (``models/transformer.py:131``): its nested layout, layers stacked on
+    leading axes with a ``None`` axis each, MoE experts
+    ``expert_slots(n_experts, data_size)`` deep."""
+    dtype = dtype_of(cfg)
+    d = cfg.d_model
+    named = {"embed": embed_spec(cfg.vocab, d, dtype), "final_norm": rmsnorm_spec(d, dtype)}
+    if not cfg.tie_embeddings:
+        named["unembed"] = dense_spec(d, cfg.vocab, dtype, in_axis=DP)
+    fam = cfg.family
+    if fam == "dense":
+        named["layers"] = stack_specs(_dense_layer_specs(cfg, dtype, use_mla=cfg.mla is not None),
+                                      cfg.n_layers)
+    elif fam == "moe":
+        attn = (mla_param_specs if cfg.mla is not None else gqa_param_specs)(cfg, dtype)
+        layer = join_specs(n1=rmsnorm_spec(d, dtype), attn=attn, n2=rmsnorm_spec(d, dtype),
+                           moe=moe_param_specs(cfg, dtype, data_size))
+        named["layers"] = stack_specs(layer, cfg.n_layers)
+    elif fam in ("ssm", "hybrid"):
+        layer = join_specs(n1=rmsnorm_spec(d, dtype), mamba=mamba2_param_specs(cfg, dtype))
+        named["layers"] = stack_specs(layer, cfg.n_layers)
+        if fam == "hybrid":
+            named["shared"] = _dense_layer_specs(cfg, dtype)
+    elif fam == "vlm":
+        n_cross = cfg.n_layers // cfg.cross_attn_every
+        named["self_layers"] = stack_specs(_dense_layer_specs(cfg, dtype), n_cross,
+                                           cfg.cross_attn_every - 1)
+        named["cross_layers"] = stack_specs(_dense_layer_specs(cfg, dtype, cross=True), n_cross)
+        named["vis_proj"] = dense_spec(cfg.d_vision, d, dtype, in_axis=None, out_axis=None)
+    elif fam == "audio":
+        named["enc_layers"] = stack_specs(_dense_layer_specs(cfg, dtype), cfg.n_enc_layers)
+        shapes, axes = _dense_layer_specs(cfg, dtype)
+        shapes["cross"], axes["cross"] = cross_attn_param_specs(cfg, dtype)
+        shapes["nc"], axes["nc"] = rmsnorm_spec(d, dtype)
+        named["dec_layers"] = stack_specs((shapes, axes), cfg.n_dec_layers)
+        named["audio_proj"] = dense_spec(cfg.d_audio, d, dtype, in_axis=None, out_axis=None)
+    else:
+        raise ValueError(fam)
+    return join_specs(**named)
+
+
+# ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
 
@@ -159,11 +237,21 @@ class DecoderLayer(DenseLayer):
 class LMModel(nn.Module):
     """One family's LM on ``device`` (CUDA unless the caller names the CPU;
     raises without a card).  Parameters are allocated uninitialised: call
-    :meth:`init` with a ``torch.Generator``, or load a state dict."""
+    :meth:`init` with a ``torch.Generator``, or load a state dict.
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    ``mesh`` (a ``DeviceMesh`` of dims ``("data", "model")``), ``data_size``
+    (its data extent; the reference's expert slotting) and ``batch_axes``
+    (the mesh dims the batch is split over) are the reference's;
+    ``use_sharded_moe`` runs the MoE layers expert-parallel over ``mesh``."""
+
+    def __init__(self, cfg: ModelConfig, device=None, *, mesh=None,
+                 use_sharded_moe: bool = False, data_size: int = 16,
+                 batch_axes=("data",)):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
+        self.data_size = data_size
+        self.batch_axes = tuple(batch_axes)
         self.device = ops.resolve_device(device)
         dev, dtype = self.device, dtype_of(cfg)
         d = cfg.d_model
@@ -197,6 +285,30 @@ class LMModel(nn.Module):
             self.audio_proj = Dense(cfg.d_audio, d, dtype, dev)
         else:
             raise ValueError(fam)
+        self.use_sharded_moe = use_sharded_moe
+
+    @property
+    def use_sharded_moe(self) -> bool:
+        return any(layer.moe.mesh is not None for layer in self._moe_layers())
+
+    @use_sharded_moe.setter
+    def use_sharded_moe(self, on: bool) -> None:
+        """Point every MoE layer at the mesh (on) or at none (off)."""
+        if on:
+            if self.mesh is None:
+                raise ValueError("use_sharded_moe needs a mesh")
+            names = self.mesh.mesh_dim_names or ()
+            if not set(self.batch_axes) <= set(names):
+                raise ValueError(f"batch_axes {self.batch_axes} are not dims of the mesh {names}")
+            if self.mesh.size(names.index("data")) != self.data_size:
+                raise ValueError(f"data_size {self.data_size} is not the mesh's data extent "
+                                 f"{self.mesh.size(names.index('data'))}")
+        for layer in self._moe_layers():
+            layer.moe.mesh = self.mesh if on else None
+
+    def _moe_layers(self):
+        return [layer for layer in self.layers if isinstance(layer, MoELayer)] \
+            if self.cfg.family == "moe" else []
 
     def init(self, generator: torch.Generator) -> "LMModel":
         """Draw every parameter from ``generator`` with the reference's

@@ -68,8 +68,11 @@ class BatchedEngine:
         return prompt_len + n_new + 8
 
     @torch.inference_mode()
-    def generate(self, batch: Dict, n_new: Optional[int] = None) -> GenResult:
-        """Greedy decoding of ``n_new`` (default ``max_new``) tokens."""
+    def generate(self, batch: Dict, n_new: Optional[int] = None,
+                 greedy: bool = True) -> GenResult:
+        """Greedy decoding of ``n_new`` (default ``max_new``) tokens.
+        ``greedy`` is the reference's keyword, which decodes greedily
+        either way."""
         n_new = n_new or self.max_new
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         batch = {**batch, "tokens": tokens}

@@ -16,8 +16,9 @@ optimizers group its parameters back into the reference's leaves
 axes) and update each group as one stacked tensor, then write the layers
 back in place.  The state is kept per leaf, stacked, keyed by the leaf's
 path (``models.convert.opt_state_to_reference`` maps it to the reference's
-tree).  The reference's ``state_specs`` (``PartitionSpec`` trees) are not
-carried: the port shards nothing yet (ROADMAP.md, Queue 1 item 8c).
+tree).  ``state_specs`` maps a parameter axes tree (``models.registry.
+param_specs``) to the optimizer state's, as the reference's does with its
+``PartitionSpec`` trees: the state shards like the parameters.
 
 ``params`` and ``grads`` are dicts of the port's parameter names
 (``dict(model.named_parameters())``) to tensors; ``update`` changes the
@@ -31,6 +32,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from ..models.common import map_leaves
 from ..models.convert import stacked_leaves
 
 __all__ = ["Optimizer", "adamw", "adafactor", "make_optimizer", "global_norm",
@@ -41,6 +43,7 @@ __all__ = ["Optimizer", "adamw", "adafactor", "make_optimizer", "global_norm",
 class Optimizer:
     init: Callable  # params -> state
     update: Callable  # (grads, state, params, step) -> None; params and state in place
+    state_specs: Callable  # param axes tree -> state axes tree
 
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -112,7 +115,10 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8
             m.copy_(m2.to(moment_dtype))
             v.copy_(v2.to(moment_dtype))
 
-    return Optimizer(init, update)
+    def state_specs(param_specs):
+        return {"m": param_specs, "v": param_specs}
+
+    return Optimizer(init, update, state_specs)
 
 
 def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
@@ -158,7 +164,16 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
                 u = u + weight_decay * p.float()
             _write_back(params, names, (p.float() - lr * u).to(p.dtype))
 
-    return Optimizer(init, update)
+    def state_specs(param_specs):
+        def one(axes):
+            # r drops the last dim's axis, c the second-to-last
+            if len(axes) >= 2:
+                return {"r": axes[:-1], "c": axes[:-2] + axes[-1:]}
+            return {"v": axes}
+
+        return {"f": map_leaves(param_specs, one)}
+
+    return Optimizer(init, update, state_specs)
 
 
 def make_optimizer(name: str, **kw) -> Optimizer:

@@ -56,7 +56,7 @@ def test_chip_smoke_rehearses_on_the_cpu(rehearsal):
                   "tiered", "tiered_path", "serve", "serve_latency", "serve_chaos",
                   "serve_trace", "serve_path", "paper", "paper_default_vs_tuned",
                   "paper_struct", "paper_nesting", "paper_path", "loader", "kv",
-                  "lm", "lm_families", "lm_serve", "train", "train_families",
+                  "lm", "lm_families", "lm_serve", "moe_sharded", "train", "train_families",
                   "bitunpack_path", "done"):
         assert phase in phases
     records = [json.loads(ln) for ln in lines if ln.startswith('{"phase"')]
@@ -202,3 +202,38 @@ def test_chip_smoke_rehearses_the_train_path(rehearsal):
     kernels = {(k["name"], k["path"]): k for k in json.loads(lines[-2])["kernels"]}
     row = kernels[("miniblock_decode", "train")]
     assert row["launches"] == tr["launches"]["miniblock_decode"] and row["mismatches"] == 0
+
+
+def test_chip_smoke_rehearses_the_moe_sharded_path(rehearsal):
+    """The sharded MoE path at the rehearsal's size: reduced
+    deepseek-v2-lite on a world-1 gloo mesh (2 prompts of 64 tokens), the
+    one-rank sweep against MoE, nothing dropped at capacity 11.0 and the
+    sharded logits within their bounds, drops at the config's own 1.25,
+    the four collectives timed, 4 generated tokens, no kernel and no
+    fallback on the path."""
+    lines = rehearsal
+    moe = next(json.loads(ln) for ln in lines if ln.startswith('{"phase": "moe_sharded"'))
+    assert moe["arch"] == "deepseek-v2-lite-16b" and moe["reduced"] and moe["dtype"] == "bfloat16"
+    assert moe["backend"] == "gloo" and moe["world"] == 1
+    assert moe["param_counts"][0] == 944_128 and moe["batch"] == 2 and moe["prompt"] == 64
+    no_drop = moe["no_drop"]
+    assert no_drop["capacity_factor"] == 11.0 and no_drop["max_dropped"] == 0.0
+    assert no_drop["pinned"]["rel_err"] <= 2e-2 and no_drop["pinned"]["argmax_agree"] >= 0.99
+    assert no_drop["unpinned"]["argmax_agree"] >= 0.99
+    own = moe["own"]
+    assert own["capacity_factor"] == 1.25 and len(own["dropped"]["per_layer"]) == 4
+    assert 0 <= own["dropped"]["mean"] <= own["dropped"]["max"] < 1
+    assert set(moe["collective_ms"]) == {"all_to_all_single", "reduce_scatter_tensor",
+                                         "all_gather_into_tensor", "all_reduce"}
+    assert all(v > 0 for v in moe["collective_ms"].values())
+    sharded = moe["prefill_ms"]["sharded"]
+    assert sharded["p50"] > 0 and len(sharded["runs"]) == 2
+    assert set(sharded["parts_ms"]) == {"attn", "moe"}
+    no_drop_layers = moe["no_drop"]["per_layer"]
+    assert len(no_drop_layers["layers"]) == 4 and no_drop_layers["max_rel_err"] <= 2e-2
+    assert moe["generate"]["decode_ms"]["steps"] == 4 and moe["generate"]["ms_per_token"] > 0
+    assert moe["bounds"]["prefill_ms"] > 0
+    assert set(moe["sweep"]) == {f"{a} {d}" for a in ("grok-1-314b", "deepseek-v2-lite-16b")
+                                 for d in ("float32", "bfloat16")}
+    assert all(r["rel_err"] <= r["bound"] for r in moe["sweep"].values())
+    assert not any(moe["launches"].values())

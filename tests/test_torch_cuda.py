@@ -591,3 +591,47 @@ def test_cuda_launch_train_scans_through_the_decode_kernel(cuda_device):
     loss, last = train.train("smollm-360m", steps=3, batch=2, seq=64, device=cuda_device)
     assert np.isfinite(loss) and last == 3
     assert ops.launches["miniblock_decode"] >= 3 and not ops.fallbacks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_one_rank_nccl_sharded_moe_matches_moe(cuda_device, dtype):
+    """moe_apply_sharded on a world-1 NCCL mesh against MoE on the same
+    card, reduced deepseek-v2-lite (MLA, shared experts) at capacity
+    slots / top_k (nothing can drop): float32 within 1e-5 of max |out|,
+    bfloat16 within 2e-2; then the LMModel with the flag on and off."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import moe_apply_sharded, shard_moe_params
+
+    cfg = reduced_config("deepseek-v2-lite-16b")
+    big = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    cfg = dataclasses.replace(cfg, dtype=str(dtype).removeprefix("torch."), moe=big)
+    mesh = make_host_mesh(cuda_device)
+    try:
+        assert dist.get_backend() == "nccl"
+        model = build_model(cfg, mesh, data_size=1, use_sharded_moe=False, device=cuda_device)
+        moe = model.layers[0].moe
+        x = torch.randn((2, 64, cfg.d_model), device=cuda_device,
+                        generator=torch.Generator(device=cuda_device).manual_seed(1)).to(dtype)
+        with torch.no_grad():
+            want, _ = moe(x)
+            got, aux = moe_apply_sharded(shard_moe_params(moe, mesh), cfg, x, mesh)
+        torch.cuda.synchronize()
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        assert float(aux["dropped"]) == 0.0
+        err = float((want.float() - got.float()).abs().max())
+        assert err <= tol * float(want.float().abs().max())
+        tokens = torch.randint(1, cfg.vocab, (2, 32), device=cuda_device)
+        plain = model({"tokens": tokens})
+        model.use_sharded_moe = True
+        sharded = model({"tokens": tokens})
+        assert torch.isfinite(sharded.float()).all()
+        if dtype == torch.float32:
+            assert float((plain - sharded).abs().max()) <= 1e-4 * float(plain.abs().max())
+    finally:
+        dist.destroy_process_group()

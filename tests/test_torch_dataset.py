@@ -175,3 +175,52 @@ def test_tiered_dataset_scan_readahead_crosses_fragments(fragments):
     nvme, s3 = got.tier_stats()
     assert s3.prefetch_iops > 0 and nvme.hits > 0
     assert_same_io(want, got)
+
+
+# ---------------------------------------------------------------------------
+# dict_cached (§6.1.1): a Parquet dictionary page fetched once, not per take
+# ---------------------------------------------------------------------------
+
+
+def _dict_files():
+    strings = make_array("utf8", 4000, np.random.default_rng(31))
+    return r_write_fragments({"c": strings}, 2, r_opts("parquet", dict_encode=True))
+
+
+@pytest.mark.parametrize("dict_cached", [False, True])
+@pytest.mark.parametrize("via", ["reader", "writer"])
+def test_dict_cached_take_iops_equal_the_reference(dict_cached, via):
+    """Two dict-encoded Parquet fragments: a cold take of one row in each,
+    then a warm one, through ``DatasetReader`` or ``DatasetWriter``; values,
+    IO and modelled time equal the reference's.  With ``dict_cached`` the
+    warm take skips both dictionary pages (tests/test_system.py::
+    test_parquet_dict_needs_extra_fetch, per fragment)."""
+    from repro.dataset import DatasetWriter as RDatasetWriter
+    from repro_torch.dataset import DatasetWriter
+
+    files = _dict_files()
+    if via == "reader":
+        want = RDatasetReader(files, dict_cached=dict_cached)
+        got = DatasetReader(files, dict_cached=dict_cached, device="cpu")
+    else:
+        want = RDatasetWriter(files, store="flat", flush=None, dict_cached=dict_cached)
+        got = DatasetWriter(files, store="flat", flush=None, dict_cached=dict_cached,
+                            device="cpu")
+    iops = []
+    for rows in (np.array([3, 2500]), np.array([4, 2501])):  # cold, then warm
+        want.reset_io()
+        got.reset_io()
+        assert_same_array(want.take("c", rows), got.take("c", rows))
+        assert_same_io(want, got)
+        iops.append(got.io_stats().n_iops)
+    assert iops == ([4, 2] if dict_cached else [4, 4])
+
+
+def test_a_positional_dict_cached_binds_dict_cached_not_device():
+    files = _dict_files()
+    # the reference's positional order: files, store, queue_depth,
+    # readahead, decode, dict_cached, tracer; device is keyword-only
+    ds = DatasetReader(files, None, 256, "auto", None, True, device="cpu")
+    assert all(f.dict_cached is True for f in ds.fragments) and ds.device.type == "cpu"
+    with pytest.raises(TypeError):
+        DatasetReader(files, None, 256, "auto", None, False, None, "cpu")

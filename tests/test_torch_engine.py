@@ -81,6 +81,21 @@ def test_greedy_tokens_equal_the_jax_engine_float32(arch):
     assert got.steps == want.steps == 8
 
 
+def test_generate_takes_the_reference_greedy_keyword():
+    """``greedy=True``, passed to both engines by keyword (the reference's
+    ``generate(batch, n_new=None, greedy=True)``), gives equal tokens; the
+    port also takes it positionally."""
+    rcfg, pcfg = configs("smollm-360m", "float32")
+    rm, jp, _, pm = reference_pair(rcfg, pcfg)
+    prompts = make_batch(rcfg, 2, 16, seed=5)["tokens"]
+    want = RBatchedEngine(rm, jp).generate({"tokens": jnp.asarray(prompts)}, n_new=6,
+                                           greedy=True)
+    eng = BatchedEngine(pm, device="cpu")
+    got = eng.generate({"tokens": prompts}, n_new=6, greedy=True)
+    np.testing.assert_array_equal(got.tokens, np.asarray(want.tokens))
+    np.testing.assert_array_equal(eng.generate({"tokens": prompts}, 6, True).tokens, got.tokens)
+
+
 # ---------------------------------------------------------------------------
 # capacity
 # ---------------------------------------------------------------------------
@@ -181,15 +196,20 @@ def test_converter_rejects_unequal_expert_replicas():
 
 def test_training_and_sharding_cuts_raise_naming_their_items():
     """Training (item 8b) is ported: ``loss_fn`` and the train forward run.
-    The sharded MoE still waits for item 8c and raises naming it."""
+    The sharded MoE (item 8c) is ported forward only: an input that
+    autograd would record raises naming 8c-4, before any collective."""
     cfg = reduced_config("smollm-360m")
     model = build_model(cfg, device="cpu")
     loss, metrics = model.loss_fn({"tokens": np.ones((1, 4), np.int32)})
     assert np.isfinite(float(loss)) and float(metrics["aux"]) == 0.0
     logits, cache, _ = model._full_forward({"tokens": np.ones((1, 4), np.int32)}, "train")
     assert logits.shape == (1, 4, cfg.vocab) and cache is None
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        moe_apply_sharded(None, cfg, None)
+    moe_cfg = reduced_config("deepseek-v2-lite-16b")
+    moe = build_model(moe_cfg, device="cpu").layers[0].moe
+    params = {"router": {"w": moe.router.w}, "wi": moe.wi, "wg": moe.wg, "wo": moe.wo}
+    x = torch.zeros((1, 2, moe_cfg.d_model), dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="8c-4"):
+        moe_apply_sharded(params, moe_cfg, x, mesh=None)
 
 
 def test_engine_checks_its_device(monkeypatch):

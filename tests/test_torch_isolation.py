@@ -3,8 +3,9 @@
 ``retrieval_serve_torch.py`` and ``train_lm_torch.py`` import jax or the
 JAX package, importing the port leaves jax unloaded, and its entry points
 (the readers and writer, the LM's ``LMModel``/``build_model``,
-``BatchedEngine``, ``launch.serve.run``, ``launch.train.train`` and the
-training example's ``run``) never run on the CPU unasked."""
+``BatchedEngine``, ``launch.serve.run``, ``launch.train.train``,
+``launch.mesh.make_host_mesh`` and the training example's ``run``) never
+run on the CPU unasked."""
 
 import ast
 import os
@@ -55,7 +56,7 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.ref, repro_torch.configs, repro_torch.models, "
             "repro_torch.models.convert, repro_torch.launch, repro_torch.launch.serve, "
             "repro_torch.train, repro_torch.train.optimizer, repro_torch.train.train_loop, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.mesh; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -88,7 +89,7 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     import importlib.util
 
     from repro_torch.configs import reduced_config
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import mesh, serve, train
     from repro_torch.models import LMModel, build_model
     from repro_torch.serve import BatchedEngine
 
@@ -105,7 +106,8 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: serve.run(docs=100), lambda: train.train("smollm-360m", steps=1),
                  lambda: train.train("smollm-360m", steps=1, device="cuda"),
                  lambda: train.main(["--steps", "1"]),
-                 lambda: example.run(example.smollm_100m(), steps=1, batch=2, seq=16)):
+                 lambda: example.run(example.smollm_100m(), steps=1, batch=2, seq=16),
+                 lambda: mesh.make_host_mesh(), lambda: mesh.make_host_mesh("cuda")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert cpu_model.device == torch.device("cpu")

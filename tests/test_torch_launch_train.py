@@ -109,7 +109,7 @@ def test_train_matches_the_reference_loop(monkeypatch, arch, microbatches):
 def test_train_refuses_what_the_reference_builds_on_repro_dist():
     for kw, item in (({"ckpt_dir": "ckpt"}, "repro.dist"), ({"ckpt_every": 5}, "repro.dist"),
                      ({"inject_failure_at": 2}, "repro.dist"),
-                     ({"mesh_kind": "production"}, "item 8c")):
+                     ({"mesh_kind": "production"}, "repro.dist")):
         with pytest.raises(NotImplementedError, match=item):
             launch_train.train("smollm-360m", steps=1, device="cpu", **kw)
     with pytest.raises(ValueError, match="vision_embeds"):
@@ -121,7 +121,8 @@ def test_cli(capsys):
                        "--device", "cpu"])
     out = capsys.readouterr().out
     assert "[train] step 0 loss=" in out and "[train] done at step 1, final loss" in out
-    for flags, item in ((["--mesh", "production"], "item 8c"), (["--ckpt-dir", "x"], "repro.dist")):
+    for flags, item in ((["--mesh", "production"], "repro.dist"),
+                        (["--ckpt-dir", "x"], "repro.dist")):
         with pytest.raises(NotImplementedError, match=item):
             launch_train.main(["--steps", "1", "--device", "cpu", *flags])
 

@@ -79,11 +79,17 @@ def test_smollm_param_count():
 
 
 def test_dryrun_specs_raise_naming_their_item():
+    """The dry-run specs, once cut (item 8c), are plain data now: smollm's
+    train input and decode cache at full size, sharded as the reference's
+    (tests/test_torch_sharding_specs.py holds every cell against it)."""
     cfg = PC.get_config("smollm-360m")
-    for fn in (lambda: input_specs(cfg, PC.SHAPES["train_4k"]),
-               lambda: cache_specs(cfg, PC.SHAPES["decode_32k"], 16)):
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            fn()
+    spec, axes = input_specs(cfg, PC.SHAPES["train_4k"])["tokens"]
+    assert spec.shape == (256, 4_097) and spec.dtype == torch.int32 and axes == (p_common.DP, None)
+    shapes, axes = cache_specs(cfg, PC.SHAPES["decode_32k"], 16)
+    assert shapes["layers"]["k"].shape == (32, 128, 32_768, 5 * 64)
+    assert axes["layers"]["k"] == (None, p_common.DP, None, p_common.TP)
+    assert shapes["length"].shape == () and axes["length"] == ()
+    assert shapes["layers"]["v"].meta().is_meta
 
 
 # ---------------------------------------------------------------------------

@@ -46,7 +46,8 @@ def _capturing(store):
     def p_update(grads, state, params, step):
         store["port"] = grads
 
-    return ROptimizer(lambda p: {}, r_update, lambda s: s), Optimizer(lambda p: {}, p_update)
+    return (ROptimizer(lambda p: {}, r_update, lambda s: s),
+            Optimizer(lambda p: {}, p_update, lambda s: s))
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "grok-1-314b"])

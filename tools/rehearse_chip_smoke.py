@@ -29,10 +29,11 @@ a run on the card:
   blocks for 8 requests over 4 decode steps (81,920-byte rows as on the
   card), the lm path serves reduced smollm-360m (2 prompts of 64 tokens, 4
   new tokens; the host reference and the family sweep as on the card, all
-  on the CPU), and the train path trains reduced smollm-360m (3 steps of
+  on the CPU), the train path trains reduced smollm-360m (3 steps of
   2 x 64 positions; its checks and the family sweep as on the card with 4
   overfit steps and a 33-token host batch, the "card" side in bf16 on the
-  CPU).
+  CPU), and the sharded MoE path runs reduced deepseek-v2-lite (2 prompts of
+  64 tokens, 2 timed prefills, 4 new tokens) on a world-1 gloo mesh.
 
 Every number it prints is a CPU number under the script's device names, so
 none of them is a measurement.  It exits with the script's code.
@@ -98,6 +99,11 @@ SHRINK = (
     ("TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 2048", "TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 2, 64"),
     ("TRAIN_OVERFIT, TRAIN_OVERFIT_LR, TRAIN_HOST_TOKENS = 8, 3e-3, 65",
      "TRAIN_OVERFIT, TRAIN_OVERFIT_LR, TRAIN_HOST_TOKENS = 4, 3e-3, 33"),
+    ('MOE_ARCH, MOE_REDUCED, MOE_BACKEND = "deepseek-v2-lite-16b", False, "nccl"',
+     'MOE_ARCH, MOE_REDUCED, MOE_BACKEND = "deepseek-v2-lite-16b", True, "gloo"'),
+    ("MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_TIMED = 4, 2048, 16, 5",
+     "MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_TIMED = 2, 64, 4, 2"),
+    ("MOE_PARAMS = 16_210_198_528", "MOE_PARAMS = 944_128"),
 )
 
 
