@@ -159,7 +159,30 @@ Phases, one JSON object per line on stdout:
    host enqueue ms, the host ms of each ``batch_for_step`` and the decode
    kernel's device ms in it, tokens/s, peak memory and the bound: 6 N
    tokens FLOPs at 989 TFLOP/s (attention left out);
-13. the kv path (``kv``): one layer's K pool of smollm-360m in a
+13. the expert-parallel train path (``moe_train``): deepseek-v2-lite-16b at
+   full width (d_model 2,048, MLA, 64 routed experts top-6 of 1,408 and 2
+   shared) with its depth cut from 27 to 4 layers (2,758,803,456
+   parameters, 751,828,992 active, by ``param_counts``), bf16, adamw, remat
+   "full", drawn from a generator seeded by ``--seed`` and built by
+   ``build_model(cfg, mesh=make_host_mesh(), data_size=1,
+   use_sharded_moe=True)`` on a world-1 NCCL mesh.  First reduced grok-1 and
+   reduced deepseek-v2-lite, sharded on that mesh: the card's bf16 loss and
+   gradients against float32 on the CPU on pinned routes at capacity 11.0
+   (the train path's bounds).  Then, at capacity 11.0, the full-width
+   model's loss and gradients sharded against ``MoE.forward``'s on the same
+   weights and batch (nothing dropped, the same bounds).  Then
+   ``make_train_step`` at the config's capacity 1.25 for 5 steps of 4 x
+   2,048 positions, each batch from ``TokenLoader.batch_for_step`` over a
+   device-route token file of the config's vocab, whose scan decodes
+   through ``miniblock_decode``; one more step under ``torch.profiler`` and
+   one with the flag off.  Losses and gradient norms must be finite and
+   nothing may fall back.  It prints the step's CUDA-event ms (p50 after a
+   warm-up step), tokens/s, peak bytes and the card's headroom, the idle
+   share, the collectives' ms summed over layers (forward with its remat
+   recompute, and backward), ``dropped``, the unsharded step's ms and the
+   bound 6 N_active tokens / 989 TFLOP/s; the process group ends with the
+   phase;
+14. the kv path (``kv``): one layer's K pool of smollm-360m in a
    ``PagedKVCache`` (5 KV heads x 64 bf16 features: 81,920-byte block rows;
    16,384 blocks, 1.25 GiB).  256 requests with prompts of 512-8,192 tokens
    are prefilled, then 32 decode steps append one token to every request
@@ -168,12 +191,12 @@ Phases, one JSON object per line on stdout:
    a mirror of the appended values rounded to bf16 on the host, and the
    plain gather of the same store (tolerance 0); it prints gathers, bytes,
    wall and the kernel's share;
-14. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
+15. the ``bitunpack`` path: 2**20 values at 11 bits (the JAX package's
    ``kernel_bench`` size), unpacked on the card and checked against the
    packed values;
-15. each kernel at the largest input each path gave it (``take``, ``search``,
-   ``tiered``, ``serve``, ``lm``, ``paper``, ``loader``, ``train``, ``kv`` and
-   ``bitunpack``;
+16. each kernel at the largest input each path gave it (``take``, ``search``,
+   ``tiered``, ``serve``, ``lm``, ``paper``, ``loader``, ``train``,
+   ``moe_train``, ``kv`` and ``bitunpack``;
    ``ivf_topk`` per search step: the centroid ``probe``
    and the ``candidates`` of each batch size), one ``kernels`` entry each:
    ``ms``, the mean of 20 back-to-back launches by CUDA events, host launch
@@ -188,7 +211,7 @@ Phases, one JSON object per line on stdout:
    is larger); and one more ``bitunpack`` row at 2**24 values of 11 bits
    (``"step": "2**24"``, no launches on any path: it shows whether the
    kernel reaches the bandwidth regime);
-16. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
+17. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Between the sweep and the dataset, ``gather_streams`` holds the gather's
 per-launch work counter to its contract: the take shape's gather (16,429
@@ -355,6 +378,16 @@ MOE_PARAMS = 16_210_198_528  # param_counts (2,663,120,896 active)
 MOE_NO_DROP_CF, MOE_BOUND, MOE_AGREE = 11.0, 2e-2, 0.99
 MOE_SWEEP = ("grok-1-314b", "deepseek-v2-lite-16b")
 MOE_SWEEP_B, MOE_SWEEP_S = 2, 64
+# the moe_train path: deepseek-v2-lite-16b at full width with its depth cut
+# to MOE_TRAIN_LAYERS of 27 (a layer's training state, bf16 weights and
+# gradients and float32 adamw moments, is 12 B a parameter: 27 layers would
+# need 195 GB), bf16, adamw, remat "full", its MoE layers expert-parallel on
+# a world-1 MOE_BACKEND mesh at the config's capacity; MOE_TRAIN_STEPS steps
+# (the first a warm-up) of MOE_TRAIN_BATCH x MOE_TRAIN_SEQ positions from a
+# device-route token file of its vocab
+MOE_TRAIN_REDUCED, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = False, 4, 5
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 2048
+MOE_TRAIN_PARAMS = (2_758_803_456, 751_828_992)  # param_counts at 4 layers (all, active)
 RTOL = 1e-6
 KERNEL_REPLACES = {
     "miniblock_decode": "src/repro/kernels/miniblock_decode.py:107",
@@ -1922,18 +1955,37 @@ class ShardedProbe:
     ``dropped``, and the four collectives it calls with CUDA events (the
     device's timeline: a synchronous collective makes the current stream
     wait for its own), summed per collective since the last ``collect``.
+    Each call is staged by who made it: the forward of one of the sharded
+    MoE's autograd Functions (a forward pass and its remat recompute), their
+    backward (the transposes), or neither (the train step's gradient sync).
     ``restore`` unwraps them."""
 
     COLLECTIVES = ("all_to_all_single", "reduce_scatter_tensor", "all_gather_into_tensor",
                    "all_reduce")
+    FUNCTIONS = ("_AllToAll", "_ReduceScatter", "_AllGather", "_AllReduce")
+    STAGES = ("forward", "backward", "grad_sync")
 
     def __init__(self):
         self.real = {n: getattr(dist, n) for n in self.COLLECTIVES}
         self.real_apply = moe_module.moe_apply_sharded
-        self.events, self.dropped = [], []
+        self.real_methods = {(f, m): getattr(moe_module, f).__dict__[m]
+                             for f in self.FUNCTIONS for m in ("forward", "backward")}
+        self.events, self.dropped, self.stage = [], [], "grad_sync"
         for name, fn in self.real.items():
             setattr(dist, name, self._timed(name, fn))
+        for (f, m), method in self.real_methods.items():
+            setattr(getattr(moe_module, f), m, staticmethod(self._staged(m, method.__func__)))
         moe_module.moe_apply_sharded = self._apply
+
+    def _staged(self, stage, fn):
+        def staged(*args):
+            outer, self.stage = self.stage, stage
+            try:
+                return fn(*args)
+            finally:
+                self.stage = outer
+
+        return staged
 
     def _timed(self, name, fn):
         def timed(*args, **kw):
@@ -1942,7 +1994,7 @@ class ShardedProbe:
             s.record()
             out = fn(*args, **kw)
             e.record()
-            self.events.append((name, s, e))
+            self.events.append((name, self.stage, s, e))
             return out
 
         return timed
@@ -1952,12 +2004,16 @@ class ShardedProbe:
         self.dropped.append(aux["dropped"])
         return out, aux
 
-    def collect(self):
-        """-> ({collective: ms}, [dropped per call]) since the last collect."""
+    def collect(self, split=False):
+        """-> ({collective: ms}, [dropped per call]) since the last collect;
+        with ``split``, the ms by stage ({"forward": {collective: ms},
+        "backward": ..., "grad_sync": ...})."""
         torch.cuda.synchronize()
-        ms = {n: 0.0 for n in self.COLLECTIVES}
-        for name, s, e in self.events:
-            ms[name] += s.elapsed_time(e)
+        ms = {k: {n: 0.0 for n in self.COLLECTIVES} for k in self.STAGES}
+        for name, stage, s, e in self.events:
+            ms[stage][name] += s.elapsed_time(e)
+        if not split:
+            ms = {n: sum(ms[k][n] for k in self.STAGES) for n in self.COLLECTIVES}
         dropped = [float(d) for d in self.dropped]
         self.events, self.dropped = [], []
         return ms, dropped
@@ -1965,6 +2021,8 @@ class ShardedProbe:
     def restore(self):
         for name, fn in self.real.items():
             setattr(dist, name, fn)
+        for (f, m), method in self.real_methods.items():
+            setattr(getattr(moe_module, f), m, method)
         moe_module.moe_apply_sharded = self.real_apply
 
 
@@ -2603,12 +2661,14 @@ def train_batch(cfg, B, S, rng):
 
 
 def grad_agreement(card, host):
-    """Each gradient tensor of the card against the CPU's: -> (min cosine,
+    """Each gradient tensor of the card against the CPU's (or another
+    reference's), on the card's device: -> (min cosine,
     its tensor, median cosine, tensors that are zero on the CPU, tensors
     zero on the CPU and not on the card)."""
     cos, zero, wrong = {}, 0, []
     for name, h in host.items():
-        c = card[name].float().cpu()
+        c = card[name].float()
+        h = h.to(c.device).float()
         hn = float(h.norm())
         if hn == 0.0:
             zero += 1
@@ -2840,6 +2900,190 @@ def train_path_phase(seed, probe):
     return launches
 
 
+def moe_train_sweep(seed, dev, mesh):
+    """Each MOE_SWEEP config reduced, its MoE layers sharded on ``mesh``: the
+    card's bf16 loss and gradients against float32 on the CPU, on pinned
+    routes, at capacity MOE_NO_DROP_CF (nothing can drop, so the CPU's
+    unsharded MoE computes the same function)."""
+    rng = np.random.default_rng(seed + 43)
+    out = {}
+    for arch in MOE_SWEEP:
+        cfg = reduced_config(arch)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               capacity_factor=MOE_NO_DROP_CF))
+        model = build_model(cfg, mesh, data_size=1, use_sharded_moe=True, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed))
+        rec, _ = card_vs_cpu(model, cfg, train_batch(cfg, LM_SWEEP_B, LM_SWEEP_S, rng), dev,
+                             pin=True)
+        out[arch] = {"remat": cfg.remat, **rec}
+        del model
+    return out
+
+
+def moe_train_path_phase(seed, probe):
+    """The expert-parallel training path (see the module docstring, item 13)."""
+    dev = torch.device("cuda")
+    cfg = reduced_config(MOE_ARCH) if MOE_TRAIN_REDUCED else get_config(MOE_ARCH)
+    cfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+    t = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s = time.perf_counter()
+    # the training input as launch/train.py writes it: the device route
+    corpus = synth.token_corpus(max(64, 4 * MOE_TRAIN_BATCH), MOE_TRAIN_SEQ, cfg.vocab, seed)
+    fbytes = write_table({"tokens": corpus}, WriteOptions("lance", decode="device"))
+    t["file_s"] = time.perf_counter() - s
+    ops.reset_counts()  # the moe_train path starts here
+    mesh = make_host_mesh(dev)
+    sharded_probe = ShardedProbe()
+    rec = TrainRecorder(probe)
+    loader = None
+    try:
+        check(dist.get_backend() == MOE_BACKEND and dist.get_world_size() == 1,
+              f"moe_train: a {dist.get_backend()} group of {dist.get_world_size()}")
+        s = time.perf_counter()
+        families = moe_train_sweep(seed, dev, mesh)
+        sharded_probe.collect()
+        t["families_s"] = time.perf_counter() - s
+
+        s = time.perf_counter()
+        model = build_model(cfg, mesh=mesh, data_size=1, use_sharded_moe=True, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed))
+        check(param_counts(cfg) == MOE_TRAIN_PARAMS,
+              f"moe_train: param_counts {param_counts(cfg)}, not {MOE_TRAIN_PARAMS}")
+        held = sum(p.numel() for p in model.parameters())
+        loader = TokenLoader(fbytes, batch=MOE_TRAIN_BATCH, seq_len=MOE_TRAIN_SEQ, seed=seed,
+                             device=dev)
+        torch.cuda.synchronize()
+        t["init_s"] = time.perf_counter() - s
+
+        # capacity MOE_NO_DROP_CF: the sharded loss and gradients against
+        # MoE.forward's on the same weights and batch
+        s = time.perf_counter()
+        set_capacity(model, MOE_NO_DROP_CF)
+        batch = loader.batch_for_step(0)
+        loss_s, _, grads_s = loss_and_grads(model, batch)
+        _, dropped_nd = sharded_probe.collect()
+        model.use_sharded_moe = False
+        loss_u, _, grads_u = loss_and_grads(model, batch)
+        model.use_sharded_moe = True
+        cos, worst, median, zero, wrong = grad_agreement(grads_s, grads_u)
+        del grads_s, grads_u
+        no_drop = {"capacity_factor": MOE_NO_DROP_CF, "max_dropped": max(dropped_nd),
+                   "loss_sharded": float(loss_s), "loss_unsharded": float(loss_u),
+                   "loss_diff_nats": abs(float(loss_s) - float(loss_u)),
+                   "grad_cos_min": cos, "grad_cos_min_tensor": worst,
+                   "grad_cos_median": median, "zero_grad_tensors": zero,
+                   "bounds": {"loss_nats": TRAIN_LOSS_NATS, "grad_cos": TRAIN_GRAD_COS}}
+        check(max(dropped_nd) == 0.0, f"moe_train: tokens dropped at capacity {MOE_NO_DROP_CF}")
+        check(not wrong, f"moe_train: gradients zero unsharded and not sharded: {wrong}")
+        check(no_drop["loss_diff_nats"] < TRAIN_LOSS_NATS,
+              f"moe_train: sharded vs unsharded loss {no_drop['loss_diff_nats']} nats")
+        check(cos >= TRAIN_GRAD_COS,
+              f"moe_train: sharded vs unsharded gradient cosine {cos} ({worst})")
+        set_capacity(model, cfg.moe.capacity_factor)
+        t["no_drop_s"] = time.perf_counter() - s
+
+        # the training run at the config's capacity
+        s = time.perf_counter()
+        opt = make_optimizer(cfg.optimizer)
+        state = opt.init(dict(model.named_parameters()))
+        step_fn = make_train_step(model, opt)
+        steps, coll, dropped = [], [], []
+        for i in range(MOE_TRAIN_STEPS):
+            batch = loader.batch_for_step(i)
+            st = torch.cuda.Event(enable_timing=True)
+            en = torch.cuda.Event(enable_timing=True)
+            h = time.perf_counter()
+            st.record()
+            metrics = step_fn(state, batch, i)
+            en.record()
+            host_ms = (time.perf_counter() - h) * 1e3
+            ms, dr = sharded_probe.collect(split=True)
+            steps.append((st.elapsed_time(en), host_ms, float(metrics["loss"]),
+                          float(metrics["grad_norm"])))
+            coll.append(ms)
+            dropped += dr
+        t["steps_s"] = time.perf_counter() - s
+        fallbacks = dict(ops.fallbacks)
+
+        # one more step under the profiler; one unsharded step on the same weights
+        s = time.perf_counter()
+        profile = train_step_profile(step_fn, (state, batch, MOE_TRAIN_STEPS))
+        model.use_sharded_moe = False
+        st = torch.cuda.Event(enable_timing=True)
+        en = torch.cuda.Event(enable_timing=True)
+        st.record()
+        step_fn(state, batch, MOE_TRAIN_STEPS + 1)
+        en.record()
+        torch.cuda.synchronize()
+        unsharded_ms = st.elapsed_time(en)
+        model.use_sharded_moe = True
+        sharded_probe.collect()
+        t["profile_s"] = time.perf_counter() - s
+        peak = torch.cuda.max_memory_allocated() - base
+        total = torch.cuda.get_device_properties(0).total_memory
+        scans = rec.scans
+        model.requires_grad_(False)
+        del model, state, step_fn, opt
+    finally:
+        if loader is not None:
+            loader.close()
+        rec.restore()
+        sharded_probe.restore()
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    launches = dict(ops.launches)  # the moe_train path ends here
+
+    step_ms = [x[0] for x in steps]
+    losses = [x[2] for x in steps]
+    norms = [x[3] for x in steps]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"moe_train: a loss or gradient norm is not finite: {losses} {norms}")
+    check(not fallbacks, f"moe_train: fell back to the host: {fallbacks}")
+    per_scan = [sc["launches"] for sc in scans]
+    check(len(per_scan) == MOE_TRAIN_STEPS + 1 and all(n >= 1 for n in per_scan),
+          f"moe_train: a step's scan did not launch miniblock_decode: {per_scan}")
+    timed_steps = np.asarray(step_ms[1:])
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    n_active = MOE_TRAIN_PARAMS[1]
+    bound_ms = 6 * n_active * tokens / BF16_FLOPS_PER_S * 1e3
+    coll_ms = {k: {n: float(np.mean([c[k][n] for c in coll[1:]])) for n in coll[0][k]}
+               for k in ShardedProbe.STAGES}
+    emit({"phase": "moe_train", "arch": cfg.name, "reduced": MOE_TRAIN_REDUCED,
+          "layers": MOE_TRAIN_LAYERS, "dtype": cfg.dtype, "optimizer": cfg.optimizer,
+          "remat": cfg.remat, "backend": MOE_BACKEND, "world": 1,
+          "capacity_factor": cfg.moe.capacity_factor, "parameters": held,
+          "param_counts": list(param_counts(cfg)), "peak_bytes": peak,
+          "headroom_bytes": total - peak - base, "batch": MOE_TRAIN_BATCH,
+          "seq": MOE_TRAIN_SEQ, "tokens_per_step": tokens, "steps": MOE_TRAIN_STEPS,
+          "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+          "step_host_enqueue_ms": [x[1] for x in steps],
+          "step_ms_after_warmup": {"p50": float(np.median(timed_steps)),
+                                   "mean": float(timed_steps.mean()),
+                                   "max": float(timed_steps.max()), "steps": len(timed_steps)},
+          "tokens_per_s": tokens / (float(np.median(timed_steps)) / 1e3),
+          "unsharded_step_ms": unsharded_ms,
+          "collective_ms": coll_ms,
+          "collective_ms_total": {k: float(sum(v.values())) for k, v in coll_ms.items()},
+          "dropped": {"mean": float(np.mean(dropped)), "max": float(np.max(dropped)),
+                      "calls": len(dropped)},
+          "no_drop": no_drop,
+          "scan": {"host_ms": [sc["host_ms"] for sc in scans], "launches_per_step": per_scan},
+          "profile": profile,
+          "bounds": {"step_ms": bound_ms, "n_active": n_active,
+                     "n_counts": "param_counts' active parameters: every weight a token "
+                                 "meets, the embedding table and top-k of the routed "
+                                 "experts included",
+                     "bf16_flops_per_s": BF16_FLOPS_PER_S,
+                     "x_bound": float(np.median(timed_steps)) / bound_ms},
+          "families": families, "seconds": t, "launches": launches, "fallbacks": fallbacks})
+    check(launches["miniblock_decode"] >= MOE_TRAIN_STEPS,
+          f"moe_train: {launches['miniblock_decode']} decode launches for {MOE_TRAIN_STEPS} steps")
+    return launches
+
+
 def kv_path_phase(seed, probe):
     """smollm-360m's paged K pool: KV_REQUESTS prefills, then KV_STEPS
     decode steps that append one token to every request and gather every
@@ -3018,7 +3262,7 @@ def kernel_case(name, a, kw):
 
 
 PATH_ORDER = {"take": 0, "search": 1, "tiered": 2, "serve": 3, "lm": 4, "moe_sharded": 5,
-              "paper": 6, "loader": 7, "train": 8, "kv": 9, "bitunpack": 10}
+              "paper": 6, "loader": 7, "train": 8, "moe_train": 9, "kv": 10, "bitunpack": 11}
 
 
 def measure_phase(probe, smallest, launches, sweep, rng):
@@ -3122,6 +3366,8 @@ def main() -> int:
     launches["loader"] = timed("loader", loader_path_phase, args.seed, probe)
     probe.path = "train"
     launches["train"] = timed("train", train_path_phase, args.seed, probe)
+    probe.path = "moe_train"
+    launches["moe_train"] = timed("moe_train", moe_train_path_phase, args.seed, probe)
     probe.path = "kv"
     launches["kv"] = timed("kv", kv_path_phase, args.seed, probe)
     probe.path = "bitunpack"

@@ -21,9 +21,16 @@ width on the model axis.  Its collectives are the reference's:
 * ``all_gather(axis=1, tiled)`` over model -> ``all_gather_into_tensor``;
 * ``psum`` of the shared experts over model -> ``all_reduce``.
 
-It computes forward only: its backward through the collectives waits for
-ROADMAP.md, Queue 1, 8c-4, and a call that autograd would record raises
-``NotImplementedError`` naming it.
+Each collective is a ``torch.autograd.Function`` whose backward is its
+transpose, the rule ``jax.vjp`` applies to the matching ``lax`` collective
+inside the reference's ``shard_map`` (``check_vma=False``): ``all_to_all``
+back, an ``all_gather`` for the reduce-scatter, a reduce-scatter for the
+``all_gather``, an ``all_reduce`` for the ``all_reduce``.  So a rank's
+backward gives its share of the gradient of the sum of every rank's
+objective, the reference's per-shard gradient; ``shard_map``'s own
+boundary rules (an output's cotangent divided by the mesh axes its spec
+leaves out, an input's summed over them) are the train step's
+(``train.train_loop``), which averages every gradient over the mesh.
 """
 
 from __future__ import annotations
@@ -92,6 +99,82 @@ def routing(x2d: torch.Tensor, router_w: torch.Tensor, n_experts: int,
     return ids, gates, aux
 
 
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of equal blocks along dim 0; its transpose is
+    itself."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """``reduce_scatter_tensor`` (sum) of dim 0's blocks; its transpose is
+    ``all_gather_into_tensor``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = dist.get_world_size(group)
+        out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        out = torch.empty((n * g.shape[0], *g.shape[1:]), dtype=g.dtype, device=g.device)
+        dist.all_gather_into_tensor(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
+class _AllGather(torch.autograd.Function):
+    """``all_gather_into_tensor`` along dim 0; its transpose is
+    ``reduce_scatter_tensor`` (sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = dist.get_world_size(group)
+        out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        out = torch.empty((g.shape[0] // n, *g.shape[1:]), dtype=g.dtype, device=g.device)
+        dist.reduce_scatter_tensor(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """``all_reduce`` (sum), in place on its input; its transpose is
+    itself."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ctx.mark_dirty(x)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def _groups(mesh, mesh_axes):
     data_axis, model_axis = mesh_axes
     dg, mg = mesh.get_group(data_axis), mesh.get_group(model_axis)
@@ -110,14 +193,8 @@ def moe_apply_sharded(params, cfg, x, mesh, mesh_axes=("data", "model")):
     ``C = ceil(T * top_k * capacity_factor / slots)`` of this rank's tokens
     in (token, k) order; the rest are dropped, and ``dropped`` is their
     share.  ``aux`` and ``dropped`` are this rank's own values (the
-    reference returns one shard's)."""
-    tensors = [x, params["router"]["w"], params["wi"], params["wg"], params["wo"]]
-    if "shared" in params:
-        tensors += [w["w"] for w in params["shared"].values()]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "moe_apply_sharded computes forward only: its backward through the "
-            "collectives waits for ROADMAP.md, Queue 1, 8c-4")
+    reference returns one shard's).  Differentiable: see the module
+    docstring for what a rank's backward computes."""
     m = cfg.moe
     dg, mg, data_size, model_size = _groups(mesh, mesh_axes)
     slots = expert_slots(m.n_experts, data_size)
@@ -151,8 +228,7 @@ def moe_apply_sharded(params, cfg, x, mesh, mesh_axes=("data", "model")):
     send[flat_slot[keep], my_pos[keep]] = x2[src_tok[keep]]
     # dispatch: slot block j goes to data rank j; the received leading axis
     # enumerates the source ranks of this rank's slots
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=dg)
+    recv = _AllToAll.apply(send, dg)
     hh = (recv.reshape(data_size, slots_local, C, d).transpose(0, 1)
           .reshape(slots_local, data_size * C, d))
     a = torch.bmm(hh, params["wi"])
@@ -161,13 +237,11 @@ def moe_apply_sharded(params, cfg, x, mesh, mesh_axes=("data", "model")):
     # complete the row-parallel product with a reduce-scatter along d (the
     # reference's §Perf C2); reduce_scatter_tensor splits dim 0, so d leads
     ds = d // model_size
-    part = torch.empty((ds, slots_local, data_size * C), dtype=o.dtype, device=o.device)
-    dist.reduce_scatter_tensor(part, o.permute(2, 0, 1).contiguous(), group=mg)
+    part = _ReduceScatter.apply(o.permute(2, 0, 1).contiguous(), mg)
     o = (part.permute(1, 2, 0).reshape(slots_local, data_size, C, ds).transpose(0, 1)
          .reshape(slots, C, ds).contiguous())
     # the return trip, d-sliced
-    back = torch.empty_like(o)
-    dist.all_to_all_single(back, o, group=dg)
+    back = _AllToAll.apply(o, dg)
     # combine: each token's k slot outputs weighted by its gates, added in
     # float32 in k order: the order of the reference's scatter-add
     # (.at[src_tok].add) on the host and of MoE.forward, where a CUDA
@@ -177,8 +251,7 @@ def moe_apply_sharded(params, cfg, x, mesh, mesh_axes=("data", "model")):
     combined = torch.zeros((T, ds), dtype=torch.float32, device=x.device)
     for j in range(k):
         combined = combined + out_tok[:, j].float() * gates[:, j][:, None]
-    gathered = torch.empty((model_size * T, ds), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(gathered, combined.to(x.dtype), group=mg)
+    gathered = _AllGather.apply(combined.to(x.dtype), mg)
     out = gathered.reshape(model_size, T, ds).permute(1, 0, 2).reshape(B, S, d)
 
     if "shared" in params:
@@ -187,8 +260,7 @@ def moe_apply_sharded(params, cfg, x, mesh, mesh_axes=("data", "model")):
         a = torch.matmul(x, sh["wi"]["w"])
         g = torch.matmul(x, sh["wg"]["w"])
         so = torch.matmul(torch.nn.functional.silu(g) * a, sh["wo"]["w"])
-        dist.all_reduce(so, group=mg)
-        out = out + so
+        out = out + _AllReduce.apply(so, mg)
     return out, {"aux": aux, "dropped": dropped}
 
 

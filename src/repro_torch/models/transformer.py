@@ -46,8 +46,10 @@ run ``moe.moe_apply_sharded`` on this rank's expert slices, as the
 reference's ``_moe_ffn`` runs it under ``shard_map``.  Each rank runs the
 model on its own batch shard: the port splits the batch by process, where
 the reference splits one global batch over ``batch_axes``.  The flag can be
-turned off and on again on the same weights.  The sharded path computes
-forward only (ROADMAP.md, Queue 1, 8c-4).
+turned off and on again on the same weights.  ``loss_fn`` is then this
+rank's loss on its shard, and its gradient this rank's share;
+``train.train_loop.loss_and_grads`` and ``make_train_step`` bring both to
+the reference's global values on every rank.
 
 Per-layer remat follows ``cfg.remat`` in train mode, as the reference's
 ``_remat``: ``"full"`` runs each layer under ``torch.utils.checkpoint``

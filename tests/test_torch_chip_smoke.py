@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -47,7 +48,7 @@ def test_chip_smoke_rehearses_on_the_cpu(rehearsal):
             ("fullzip_gather", "paper", None), ("miniblock_decode", "loader", None),
             ("fullzip_gather", "kv", None), ("fullzip_gather", "lm", None),
             ("ivf_topk", "search", "probe"), ("bitunpack", "bitunpack", None),
-            ("miniblock_decode", "train", None),
+            ("miniblock_decode", "train", None), ("miniblock_decode", "moe_train", None),
             ("bitunpack", "bitunpack", "2**24")} <= entries
     assert {s for n, _, s in entries if n == "ivf_topk"} == {
         "probe", "candidates q=1", "candidates q=4", "candidates q=8"}
@@ -57,7 +58,7 @@ def test_chip_smoke_rehearses_on_the_cpu(rehearsal):
                   "serve_trace", "serve_path", "paper", "paper_default_vs_tuned",
                   "paper_struct", "paper_nesting", "paper_path", "loader", "kv",
                   "lm", "lm_families", "lm_serve", "moe_sharded", "train", "train_families",
-                  "bitunpack_path", "done"):
+                  "moe_train", "bitunpack_path", "done"):
         assert phase in phases
     records = [json.loads(ln) for ln in lines if ln.startswith('{"phase"')]
     streams = next(r for r in records if r["phase"] == "gather_streams")
@@ -237,3 +238,52 @@ def test_chip_smoke_rehearses_the_moe_sharded_path(rehearsal):
                                  for d in ("float32", "bfloat16")}
     assert all(r["rel_err"] <= r["bound"] for r in moe["sweep"].values())
     assert not any(moe["launches"].values())
+
+
+def test_chip_smoke_rehearses_the_moe_train_path(rehearsal):
+    """The expert-parallel train path at the rehearsal's size: reduced
+    deepseek-v2-lite cut to 2 layers on a world-1 gloo mesh, 3 steps of
+    2 x 64 positions from the device-route token file (one decode launch a
+    scan, no fallback), the sharded gradients against MoE.forward's at
+    capacity 11.0 and the reduced configs against float32 on the CPU within
+    the train path's bounds, the collectives staged forward, backward and
+    gradient sync, and the line between train and kv in the run's order
+    (PATH_ORDER), its kernels row after train's."""
+    lines = rehearsal
+    phases = [json.loads(ln)["phase"] for ln in lines if ln.startswith('{"phase"')]
+    assert phases.index("train") < phases.index("moe_train") < phases.index("kv")
+    mt = next(json.loads(ln) for ln in lines if ln.startswith('{"phase": "moe_train"'))
+    assert mt["arch"] == "deepseek-v2-lite-16b" and mt["reduced"] and mt["layers"] == 2
+    assert mt["dtype"] == "bfloat16" and mt["optimizer"] == "adamw" and mt["remat"] == "full"
+    assert mt["backend"] == "gloo" and mt["world"] == 1 and mt["capacity_factor"] == 1.25
+    assert mt["param_counts"] == [537_600, 439_296]
+    assert mt["batch"] == 2 and mt["seq"] == 64 and mt["tokens_per_step"] == 128
+    assert mt["steps"] == 3 and len(mt["losses"]) == len(mt["step_ms"]) == 3
+    assert all(np.isfinite(mt["losses"])) and all(np.isfinite(mt["grad_norms"]))
+    assert mt["step_ms_after_warmup"]["steps"] == 2 and mt["tokens_per_s"] > 0
+    assert mt["unsharded_step_ms"] > 0
+    assert mt["scan"]["launches_per_step"] == [1, 1, 1, 1] and mt["fallbacks"] == {}
+    assert set(mt["collective_ms"]) == {"forward", "backward", "grad_sync"}
+    for stage in ("forward", "backward"):
+        assert all(v > 0 for v in mt["collective_ms"][stage].values()), stage
+    assert mt["collective_ms"]["grad_sync"]["all_reduce"] > 0
+    assert 0 <= mt["dropped"]["mean"] <= mt["dropped"]["max"] < 1
+    # each forward's 2 layers in 3 steps; a remat recompute that stops early,
+    # inside the layer, once backward has what it needs, records none
+    assert mt["dropped"]["calls"] >= 2 * 3
+    nd = mt["no_drop"]
+    assert nd["capacity_factor"] == 11.0 and nd["max_dropped"] == 0.0
+    assert nd["loss_diff_nats"] < 2e-2 and nd["grad_cos_min"] >= 0.99
+    bounds = mt["bounds"]
+    assert bounds["n_active"] == 439_296
+    assert bounds["step_ms"] == 6 * 439_296 * 128 / 989e12 * 1e3
+    assert set(mt["families"]) == {"grok-1-314b", "deepseek-v2-lite-16b"}
+    for arch, r in mt["families"].items():
+        assert r["loss_diff_nats"] < 2e-2 and r["grad_cos_min"] >= 0.99, arch
+        assert "moved_tokens" in r
+    assert mt["launches"]["miniblock_decode"] >= 3
+    kernels = json.loads(lines[-2])["kernels"]
+    paths = [k["path"] for k in kernels if k["name"] == "miniblock_decode"]
+    assert paths.index("train") + 1 == paths.index("moe_train")
+    row = next(k for k in kernels if (k["name"], k["path"]) == ("miniblock_decode", "moe_train"))
+    assert row["launches"] == mt["launches"]["miniblock_decode"] and row["mismatches"] == 0

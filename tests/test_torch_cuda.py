@@ -635,3 +635,45 @@ def test_cuda_one_rank_nccl_sharded_moe_matches_moe(cuda_device, dtype):
             assert float((plain - sharded).abs().max()) <= 1e-4 * float(plain.abs().max())
     finally:
         dist.destroy_process_group()
+
+
+def test_cuda_one_rank_nccl_sharded_moe_backward_matches_moe(cuda_device):
+    """The sharded MoE's backward on a world-1 NCCL mesh: reduced
+    deepseek-v2-lite in float32 at capacity 11.0 (nothing can drop),
+    ``train.loss_and_grads`` with the flag on against off on the same card
+    and weights (loss within 1e-5 relative, each gradient within 1e-4 of its
+    tensor's max, the float32 bounds of tests/test_torch_train.py); then two
+    bf16 adamw steps with the flag on stay finite."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import loss_and_grads, make_optimizer, make_train_step
+
+    cfg = reduced_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=11.0))
+    batch = {"tokens": np.random.default_rng(4).integers(1, cfg.vocab, (2, 33)).astype(np.int32)}
+    mesh = make_host_mesh(cuda_device)
+    try:
+        assert dist.get_backend() == "nccl"
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        model = build_model(f32, mesh, data_size=1, use_sharded_moe=True, device=cuda_device)
+        s_loss, _, s_grads = loss_and_grads(model, batch)
+        model.use_sharded_moe = False
+        u_loss, _, u_grads = loss_and_grads(model, batch)
+        assert abs(float(s_loss) - float(u_loss)) <= 1e-5 * abs(float(u_loss))
+        for name, want in u_grads.items():
+            err = float((s_grads[name] - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max()), (name, err)
+        model = build_model(cfg, mesh, data_size=1, use_sharded_moe=True, device=cuda_device)
+        opt = make_optimizer("adamw")
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(model, opt)
+        for i in range(2):
+            metrics = step(state, batch, i)
+            assert np.isfinite(float(metrics["loss"])) and np.isfinite(float(metrics["grad_norm"]))
+    finally:
+        dist.destroy_process_group()

@@ -29,7 +29,6 @@ from repro.serve.engine import BatchedEngine as RBatchedEngine
 from repro_torch.configs import ARCHS, reduced_config
 from repro_torch.launch import serve as p_serve
 from repro_torch.models import LMModel, build_model, convert
-from repro_torch.models.moe import moe_apply_sharded
 from repro_torch.serve import BatchedEngine
 
 from _torch_models import configs, make_batch, reference_pair, to_port
@@ -195,21 +194,42 @@ def test_converter_rejects_unequal_expert_replicas():
 
 
 def test_training_and_sharding_cuts_raise_naming_their_items():
-    """Training (item 8b) is ported: ``loss_fn`` and the train forward run.
-    The sharded MoE (item 8c) is ported forward only: an input that
-    autograd would record raises naming 8c-4, before any collective."""
+    """Training (item 8b) and the sharded MoE's backward (8c-4) are ported:
+    ``loss_fn`` and the train forward run, and on a world-1 gloo mesh the
+    sharded model's loss and gradients at capacity 11.0 (nothing can drop)
+    equal the unsharded model's on the same weights (1e-5 of each tensor's
+    max).  What is still cut raises naming where it waits: the production
+    mesh ("Not to port")."""
+    from repro_torch.launch import train as p_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import loss_and_grads
+
     cfg = reduced_config("smollm-360m")
     model = build_model(cfg, device="cpu")
     loss, metrics = model.loss_fn({"tokens": np.ones((1, 4), np.int32)})
     assert np.isfinite(float(loss)) and float(metrics["aux"]) == 0.0
     logits, cache, _ = model._full_forward({"tokens": np.ones((1, 4), np.int32)}, "train")
     assert logits.shape == (1, 4, cfg.vocab) and cache is None
-    moe_cfg = reduced_config("deepseek-v2-lite-16b")
-    moe = build_model(moe_cfg, device="cpu").layers[0].moe
-    params = {"router": {"w": moe.router.w}, "wi": moe.wi, "wg": moe.wg, "wo": moe.wo}
-    x = torch.zeros((1, 2, moe_cfg.d_model), dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="8c-4"):
-        moe_apply_sharded(params, moe_cfg, x, mesh=None)
+    moe_cfg = dataclasses.replace(reduced_config("deepseek-v2-lite-16b"), dtype="float32")
+    moe_cfg = dataclasses.replace(moe_cfg, moe=dataclasses.replace(moe_cfg.moe,
+                                                                   capacity_factor=11.0))
+    batch = {"tokens": np.random.default_rng(3).integers(1, moe_cfg.vocab, (2, 17))
+             .astype(np.int32)}
+    mesh = make_host_mesh("cpu")
+    try:
+        moe_model = build_model(moe_cfg, mesh, data_size=1, use_sharded_moe=True, device="cpu")
+        s_loss, s_met, s_grads = loss_and_grads(moe_model, batch)
+        moe_model.use_sharded_moe = False
+        u_loss, u_met, u_grads = loss_and_grads(moe_model, batch)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert abs(float(s_loss) - float(u_loss)) <= 1e-6 * abs(float(u_loss))
+    assert abs(float(s_met["aux"]) - float(u_met["aux"])) <= 1e-6 * float(u_met["aux"])
+    for name, want in u_grads.items():
+        err = float((s_grads[name] - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), name
+    with pytest.raises(NotImplementedError, match="Not to port"):
+        p_train.train("smollm-360m", steps=1, mesh_kind="production", device="cpu")
 
 
 def test_engine_checks_its_device(monkeypatch):

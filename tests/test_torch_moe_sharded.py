@@ -16,7 +16,10 @@ package's on the CPU.
 * ``LMModel`` with the sharded MoE on a world-1 gloo mesh (reduced
   deepseek-v2-lite: MLA and shared experts) against the reference's on a
   (1, 1) mesh, on converted weights;
-* a call that autograd would record raises, naming 8c-4;
+* the backward on that mesh: ``train.loss_and_grads`` against the
+  reference's ``jax.value_and_grad`` on a (1, 1) mesh, and microbatched
+  train steps against the unsharded model's (the multi-rank gradients are
+  tests/test_torch_moe_train.py's);
 * ``make_host_mesh`` and ``make_production_mesh``.
 """
 
@@ -37,11 +40,12 @@ import repro_torch.configs as PC
 from repro.compat import set_mesh
 from repro.models.transformer import LMModel as RLMModel
 from repro_torch.launch.mesh import MeshShape, make_host_mesh, make_production_mesh
-from repro_torch.models import LMModel, build_model
+from repro_torch.models import LMModel, build_model, convert
 from repro_torch.models.moe import MoE, moe_apply_sharded, shard_moe_params
+from repro_torch.train import loss_and_grads, make_optimizer, make_train_step
 
 from _moe_sharded_runs import B, CASES, case_config, case_inputs, load_moe
-from _torch_models import configs, make_batch, reference_pair, rel_err, to_port
+from _torch_models import configs, make_batch, reference_pair, rel_err, to_port, tree_errs
 
 ROOT = Path(__file__).resolve().parents[1]
 RUNS = Path(__file__).resolve().parent / "_moe_sharded_runs.py"
@@ -207,18 +211,54 @@ def test_build_model_takes_the_reference_signature(host_mesh):
 
 
 def test_a_grad_enabled_call_raises_naming_8c_4(host_mesh):
-    """Forward only: autograd through the collectives is ROADMAP 8c-4."""
-    cfg = PC.reduced_config("deepseek-v2-lite-16b")
-    model = build_model(cfg, host_mesh, data_size=1, use_sharded_moe=True, device="cpu")
-    moe = model.layers[0].moe
-    x = torch.randn((1, 4, cfg.d_model), dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="8c-4"):
-        moe_apply_sharded(shard_moe_params(moe, host_mesh), cfg, x, host_mesh)
-    model.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="8c-4"):
-        model.loss_fn({"tokens": np.ones((1, 5), np.int32)})
-    # without autograd the same call runs
-    with torch.no_grad():
-        out, _ = moe_apply_sharded(shard_moe_params(moe, host_mesh), cfg, x, host_mesh)
-    assert out.shape == x.shape and torch.isfinite(out).all()
+    """The backward through the collectives (ROADMAP 8c-4) runs: reduced
+    deepseek-v2-lite (MLA, shared experts, capacity 1.25) with the sharded
+    MoE on a world-1 gloo mesh, ``train.loss_and_grads`` against the
+    reference's ``jax.value_and_grad`` of its ``loss_fn`` with the sharded
+    MoE on a (1, 1) mesh, same weights: loss, nll and aux within 1e-5
+    relative, every gradient within 1e-4 of its tensor's max.  No call
+    raises naming 8c-4."""
+    rcfg, pcfg = configs("deepseek-v2-lite-16b", "float32")
+    _, jp, _, pm = reference_pair(rcfg, pcfg, data_size=1)
+    jmesh = jax.make_mesh((1, 1), ("data", "model"),
+                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    rm = RLMModel(rcfg, data_size=1, use_sharded_moe=True, mesh=jmesh)
+    batch = make_batch(rcfg, 2, 17)
+    with set_mesh(jmesh):
+        (r_loss, r_met), r_grads = jax.jit(jax.value_and_grad(rm.loss_fn, has_aux=True))(
+            jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    model = LMModel(pcfg, device="cpu", mesh=host_mesh, use_sharded_moe=True, data_size=1)
+    model.load_state_dict(pm.state_dict())
+    loss, met, grads = loss_and_grads(model, to_port(batch))
+    for want, got in ((r_loss, loss), (r_met["nll"], met["nll"]), (r_met["aux"], met["aux"])):
+        assert abs(float(want) - float(got)) <= 1e-5 * abs(float(want))
+    errs = tree_errs(jax.tree.map(np.asarray, r_grads),
+                     convert.params_to_reference(pcfg, grads, data_size=1))
+    assert max(errs.values()) <= 1e-4, max(errs, key=errs.get)
 
+
+def test_microbatched_steps_on_the_sharded_model_equal_the_unsharded(host_mesh):
+    """``make_train_step(microbatches=2)`` on a world-1 gloo mesh: two adamw
+    steps of the sharded model at capacity 11.0 (nothing can drop) report
+    the unsharded model's losses (1e-6 relative) and hand the optimizer its
+    gradients (1e-4 of each tensor's max, the float32 gradient bound of
+    tests/test_torch_train.py), from the same weights."""
+    cfg = dataclasses.replace(PC.reduced_config("deepseek-v2-lite-16b"), dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=11.0))
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab, (4, 17)).astype(np.int32))}
+    out = {}
+    for sharded in (True, False):
+        model = build_model(cfg, host_mesh, data_size=1, use_sharded_moe=sharded, device="cpu")
+        opt = make_optimizer("adamw", lr=1e-3)
+        seen = []
+        opt = dataclasses.replace(opt, update=lambda g, *a, real=opt.update: (
+            seen.append({k: v.clone() for k, v in g.items()}), real(g, *a))[1])
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(model, opt, microbatches=2)
+        out[sharded] = [float(step(state, batch, i)["loss"]) for i in range(2)], seen
+    (s_losses, s_grads), (u_losses, u_grads) = out[True], out[False]
+    assert np.allclose(s_losses, u_losses, rtol=1e-6, atol=0)
+    for got, want in zip(s_grads, u_grads):
+        for name, w in want.items():
+            assert float((got[name] - w).abs().max()) <= 1e-4 * float(w.abs().max()), name

@@ -33,7 +33,9 @@ a run on the card:
   2 x 64 positions; its checks and the family sweep as on the card with 4
   overfit steps and a 33-token host batch, the "card" side in bf16 on the
   CPU), and the sharded MoE path runs reduced deepseek-v2-lite (2 prompts of
-  64 tokens, 2 timed prefills, 4 new tokens) on a world-1 gloo mesh.
+  64 tokens, 2 timed prefills, 4 new tokens) and the expert-parallel
+  train path trains reduced deepseek-v2-lite cut to 2 layers (3 steps of
+  2 x 64 positions; its checks as on the card) on a world-1 gloo mesh.
 
 Every number it prints is a CPU number under the script's device names, so
 none of them is a measurement.  It exits with the script's code.
@@ -104,6 +106,10 @@ SHRINK = (
     ("MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_TIMED = 4, 2048, 16, 5",
      "MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_TIMED = 2, 64, 4, 2"),
     ("MOE_PARAMS = 16_210_198_528", "MOE_PARAMS = 944_128"),
+    ("MOE_TRAIN_REDUCED, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = False, 4, 5",
+     "MOE_TRAIN_REDUCED, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = True, 2, 3"),
+    ("MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 2048", "MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 64"),
+    ("MOE_TRAIN_PARAMS = (2_758_803_456, 751_828_992)", "MOE_TRAIN_PARAMS = (537_600, 439_296)"),
 )
 
 
@@ -153,7 +159,7 @@ def _stub_cuda() -> None:
     torch.cuda.current_stream = lambda *a: _Stream()
     torch.cuda.stream = lambda s: contextlib.nullcontext()
     torch.cuda.get_device_properties = lambda *a: types.SimpleNamespace(
-        multi_processor_count=132)
+        multi_processor_count=132, total_memory=0)
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
