@@ -379,7 +379,8 @@ class FileReader:
                 res = self.take_leaves(name, rows, io)
             if col["kind"] in _WHOLE_READERS:
                 return res
-            return unshred(res, type_from_dict(col["type"]))
+            with self.tracer.step("file.assemble"):
+                return unshred(res, type_from_dict(col["type"]))
 
     def take_leaves(self, name: str, rows, io):
         """One take through an externally-owned batch handle.
@@ -415,7 +416,8 @@ class FileReader:
         if col["kind"] == "packed":
             return readers[0].scan(io, io_chunk=io_chunk)
         leaves = [r.scan(io, io_chunk=io_chunk) for r in readers]
-        return unshred(leaves, typ)
+        with self.tracer.step("file.assemble"):
+            return unshred(leaves, typ)
 
     def scan_packed_field(self, name: str, fields) -> A.Array:
         """Scan only ``fields`` of a packed struct column: the whole stride

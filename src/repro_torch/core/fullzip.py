@@ -54,6 +54,7 @@ from .encodings_base import (
     reorder_leaf_rows,
 )
 from ..kernels import ops
+from ..obs.trace import NULL_TRACER
 from .rdlevels import (
     control_word_width,
     gather_le,
@@ -478,7 +479,10 @@ class FullZipReader(ColumnReader):
         m = self.meta
         if len(rows) == 0:
             return empty_leaf(self.proto)
-        urows, inv = np.unique(rows, return_inverse=True)
+        tracer = getattr(io, "tracer", None)
+        tr = NULL_TRACER if tracer is None else tracer
+        with tr.step("fullzip.locate"):
+            urows, inv = np.unique(rows, return_inverse=True)
         if urows[0] < 0 or urows[-1] >= m["n_rows"]:
             raise IndexError(
                 f"take rows out of bounds for {m['n_rows']}-row column"
@@ -493,8 +497,10 @@ class FullZipReader(ColumnReader):
             # the decoded result, never re-read, so amplification stays >= 1
             io.note_useful(stride * n_unique)
             if self.decode == "device":
-                return self._take_fixed_device(data, n_unique, stride, inv)
-            rep, defs, vals = self._decode_fixed(data)
+                return self._take_fixed_device(data, n_unique, stride, inv,
+                                               tracer=tracer)
+            with tr.step("fullzip.decode"):
+                rep, defs, vals = self._decode_fixed(data)
         else:
             if self.decode == "device":
                 # the rep-indexed path decodes variable-stride entries on the
@@ -522,18 +528,26 @@ class FullZipReader(ColumnReader):
         return reorder_leaf_rows(dec, inv)
 
     def _take_fixed_device(self, data: np.ndarray, n_unique: int, stride: int,
-                           inv: np.ndarray) -> ShreddedLeaf:
+                           inv: np.ndarray, tracer=None) -> ShreddedLeaf:
         """Fused gather route: one ``fullzip_gather`` launch fans the unique
         zipped rows out to request order on the device, then the
         request-order matrix is decoded strided — bit-identical to the host
         ``reorder_leaf_rows`` permutation (fixed-stride entries are rows)."""
+        tr = NULL_TRACER if tracer is None else tracer
         zipped = np.ascontiguousarray(data[: n_unique * stride]).reshape(
             n_unique, stride)
-        gathered = ops.to_host(ops.fullzip_gather(
-            ops.to_device(zipped, self.device),
-            ops.to_device(inv.astype(np.int32), self.device)))
-        rep, defs, vals = self._decode_fixed(gathered.reshape(-1))
-        return leaf_slice(self.proto, rep, defs, vals, len(inv))
+        index = inv.astype(np.int32)
+        with tr.step("device.h2d", bytes=zipped.nbytes + index.nbytes):
+            args = (ops.to_device(zipped, self.device),
+                    ops.to_device(index, self.device))
+        with tr.step("device.fullzip_gather"):
+            out = ops.fullzip_gather(*args)
+        with tr.step("device.d2h") as st:
+            gathered = ops.to_host(out)
+            st.set(bytes=gathered.nbytes)
+        with tr.step("fullzip.decode"):
+            rep, defs, vals = self._decode_fixed(gathered.reshape(-1))
+            return leaf_slice(self.proto, rep, defs, vals, len(inv))
 
     def scan(self, io, io_chunk: int = 8 << 20) -> ShreddedLeaf:
         """Full scan in bounded-memory windows: each ``io_chunk`` window is

@@ -50,6 +50,7 @@ from .encodings_base import (
     value_bytes,
 )
 from ..kernels import ops
+from ..obs.trace import NULL_TRACER
 from .rdlevels import level_bits, pack_levels, unpack_levels
 from .shred import ShreddedLeaf
 
@@ -329,29 +330,37 @@ class MiniBlockReader(ColumnReader):
         rows = np.asarray(rows, dtype=np.int64)
         if len(rows) == 0:
             return empty_leaf(self.proto)
-        urows, inv = np.unique(rows, return_inverse=True)
-        if urows[0] < 0 or urows[-1] >= self.meta["n_rows"]:
-            raise IndexError(
-                f"take rows out of bounds for {self.meta['n_rows']}-row column"
-            )
-        c0, c1, rows_before = self._chunk_ranges_for_rows(urows)
-        n_chunks = len(rows_before)
-        # union of the [c0, c1] ranges via a coverage diff (O(chunks + rows))
-        cover = np.zeros(n_chunks + 1, dtype=np.int64)
-        np.add.at(cover, c0, 1)
-        np.add.at(cover, c1 + 1, -1)
-        needed = np.nonzero(np.cumsum(cover[:-1]) > 0)[0]
+        tracer = getattr(io, "tracer", None)
+        tr = NULL_TRACER if tracer is None else tracer
+        with tr.step("miniblock.locate"):
+            urows, inv = np.unique(rows, return_inverse=True)
+            if urows[0] < 0 or urows[-1] >= self.meta["n_rows"]:
+                raise IndexError(
+                    f"take rows out of bounds for {self.meta['n_rows']}-row column"
+                )
+            c0, c1, rows_before = self._chunk_ranges_for_rows(urows)
+            n_chunks = len(rows_before)
+            # union of the [c0, c1] ranges via a coverage diff (O(chunks + rows))
+            cover = np.zeros(n_chunks + 1, dtype=np.int64)
+            np.add.at(cover, c0, 1)
+            np.add.at(cover, c1 + 1, -1)
+            needed = np.nonzero(np.cumsum(cover[:-1]) > 0)[0]
+            offs = np.asarray(self.meta["chunk_offsets"], dtype=np.int64)
+            sizes = np.array([self.meta["chunks"][c]["words"] * 8 for c in needed],
+                             dtype=np.int64)
 
         # IO: every needed chunk exactly once, one phase-0 batch dispatch
-        offs = np.asarray(self.meta["chunk_offsets"], dtype=np.int64)
-        sizes = np.array([self.meta["chunks"][c]["words"] * 8 for c in needed],
-                         dtype=np.int64)
         data, doffs = io.read_many(self.base + offs[needed], sizes, phase=0)
         raws = [data[doffs[i]: doffs[i + 1]] for i in range(len(needed))]
 
         # decode each chunk exactly once (numpy or batched on the device)
-        decoded = self._decode_chunks(needed, raws,
-                                      tracer=getattr(io, "tracer", None))
+        decoded = self._decode_chunks(needed, raws, tracer=tracer)
+        with tr.step("miniblock.select"):
+            return self._select(decoded, needed, rows_before, urows, inv, io)
+
+    def _select(self, decoded, needed, rows_before, urows, inv, io) -> ShreddedLeaf:
+        """The requested rows' entries out of the decoded chunks, in request
+        order (duplicates materialized)."""
         lens = np.array([self.meta["chunks"][c]["n_entries"] for c in needed],
                         dtype=np.int64)
         reps = [d[0] for d in decoded]
@@ -397,12 +406,16 @@ class MiniBlockReader(ColumnReader):
         rep/def level width) are batch-decoded by one ``miniblock_decode``
         launch; the rest fall back to the numpy path per chunk, each
         fallback counted under its reason (``ops.fallbacks``, and ``tracer``,
-        the IO path's, via the batch handle)."""
+        the IO path's, via the batch handle).  Under the tracer's steps the
+        chunks are counted (``miniblock.chunks``)."""
+        tr = NULL_TRACER if tracer is None else tracer
+        tr.tally("miniblock.chunks", len(raws))
         if self.decode == "device":
             routed = self._decode_chunks_device(chunk_ids, raws, tracer)
             if routed is not None:
                 return routed
-        return [self._decode_chunk(c, raw) for c, raw in zip(chunk_ids, raws)]
+        with tr.step("miniblock.decode"):
+            return [self._decode_chunk(c, raw) for c, raw in zip(chunk_ids, raws)]
 
     # The eligibility rules and fallback slugs keep the JAX package's names
     # (its Pallas kernel's), so the same chunks reach the kernel and the
@@ -470,110 +483,127 @@ class MiniBlockReader(ColumnReader):
 
     def _decode_chunks_device(self, chunk_ids, raws,
                               tracer=None) -> Optional[List[tuple]]:
-        col_reason = self._pallas_ineligible_reason()
-        if col_reason is not None:
-            ops.note_fallback("miniblock", col_reason, tracer,
-                              n_chunks=len(chunk_ids))
-            return None
-        lt = self.proto.leaf_type
-        fsl = isinstance(lt, T.FixedSizeList)
-        vpe = lt.size if fsl else 1
-        dt = np.dtype(lt.child.dtype if fsl else lt.dtype)
-        rep_bits = level_bits(self.proto.max_rep)
-        def_bits = level_bits(self.proto.max_def)
-        vbi = (1 if rep_bits else 0) + (1 if def_bits else 0)
-        metas = [self.meta["chunks"][c] for c in chunk_ids]
-        # metadata-only eligibility check first: chunks are parsed at most
-        # once, and an all-ineligible batch costs no parse work at all
-        kp = [self._chunk_kernel_params(cm["bufmeta"][vbi]) for cm in metas]
-        reasons: Dict[str, int] = {}
-        for cm, p in zip(metas, kp):
-            if p is None:
-                r = self._chunk_fallback_reason(cm["bufmeta"][vbi])
-                reasons[r] = reasons.get(r, 0) + 1
-        for r in sorted(reasons):  # one count per reason per batch
-            ops.note_fallback("miniblock", r, tracer, n_chunks=reasons[r])
-        if not any(p is not None for p in kp):
-            return None
-        sel = [i for i, p in enumerate(kp) if p is not None]
-        parsed = {i: _parse_chunk(raws[i]) for i in sel}
-        tile = -(-max(metas[i]["n_entries"] for i in sel) // 128) * 128
-        params = np.zeros((len(sel), 3), dtype=np.int32)
-        streams = []  # (rep_words, def_words, val_words) ragged rows
-        for j, i in enumerate(sel):
-            cm, bufs = metas[i], parsed[i]
-            rw = ops.pack_words(bufs[0], pad_words=1) if rep_bits else None
-            dw = (ops.pack_words(bufs[1 if rep_bits else 0], pad_words=1)
-                  if def_bits else None)
-            vw = ops.pack_words(bufs[vbi], pad_words=1)
-            streams.append((rw, dw, vw))
-            params[j] = (cm["n_entries"], kp[i][0], kp[i][1])
+        tr = NULL_TRACER if tracer is None else tracer
+        with tr.step("miniblock.parse"):
+            col_reason = self._pallas_ineligible_reason()
+            if col_reason is not None:
+                ops.note_fallback("miniblock", col_reason, tracer,
+                                  n_chunks=len(chunk_ids))
+                return None
+            lt = self.proto.leaf_type
+            fsl = isinstance(lt, T.FixedSizeList)
+            vpe = lt.size if fsl else 1
+            dt = np.dtype(lt.child.dtype if fsl else lt.dtype)
+            rep_bits = level_bits(self.proto.max_rep)
+            def_bits = level_bits(self.proto.max_def)
+            vbi = (1 if rep_bits else 0) + (1 if def_bits else 0)
+            metas = [self.meta["chunks"][c] for c in chunk_ids]
+            # metadata-only eligibility check first: chunks are parsed at most
+            # once, and an all-ineligible batch costs no parse work at all
+            kp = [self._chunk_kernel_params(cm["bufmeta"][vbi]) for cm in metas]
+            reasons: Dict[str, int] = {}
+            for cm, p in zip(metas, kp):
+                if p is None:
+                    r = self._chunk_fallback_reason(cm["bufmeta"][vbi])
+                    reasons[r] = reasons.get(r, 0) + 1
+            for r in sorted(reasons):  # one count per reason per batch
+                ops.note_fallback("miniblock", r, tracer, n_chunks=reasons[r])
+            if not any(p is not None for p in kp):
+                return None
+            sel = [i for i, p in enumerate(kp) if p is not None]
+            parsed = {i: _parse_chunk(raws[i]) for i in sel}
 
-        def stack(rows, active):
-            if not active:
-                return np.zeros((len(rows), 1), dtype=np.uint32)
-            width = max(len(r) for r in rows)
-            out = np.zeros((len(rows), width), dtype=np.uint32)
-            for j, r in enumerate(rows):
-                out[j, : len(r)] = r
-            return out
+        with tr.step("miniblock.pack"):
+            tile = -(-max(metas[i]["n_entries"] for i in sel) // 128) * 128
+            params = np.zeros((len(sel), 3), dtype=np.int32)
+            streams = []  # (rep_words, def_words, val_words) ragged rows
+            for j, i in enumerate(sel):
+                cm, bufs = metas[i], parsed[i]
+                rw = ops.pack_words(bufs[0], pad_words=1) if rep_bits else None
+                dw = (ops.pack_words(bufs[1 if rep_bits else 0], pad_words=1)
+                      if def_bits else None)
+                vw = ops.pack_words(bufs[vbi], pad_words=1)
+                streams.append((rw, dw, vw))
+                params[j] = (cm["n_entries"], kp[i][0], kp[i][1])
+
+            def stack(rows, active):
+                if not active:
+                    return np.zeros((len(rows), 1), dtype=np.uint32)
+                width = max(len(r) for r in rows)
+                out = np.zeros((len(rows), width), dtype=np.uint32)
+                for j, r in enumerate(rows):
+                    out[j, : len(r)] = r
+                return out
+
+            host = (stack([s[0] for s in streams], rep_bits),
+                    stack([s[1] for s in streams], def_bits),
+                    stack([s[2] for s in streams], True), params)
 
         dev = self.device
-        rep_np, def_np, vals_np = (ops.to_host(a) for a in ops.miniblock_decode(
-            ops.to_device(stack([s[0] for s in streams], rep_bits), dev),
-            ops.to_device(stack([s[1] for s in streams], def_bits), dev),
-            ops.to_device(stack([s[2] for s in streams], True), dev),
-            ops.to_device(params, dev), rep_bits=rep_bits, def_bits=def_bits,
-            vpe=vpe, tile_entries=tile, fill=0))
+        with tr.step("device.h2d", bytes=sum(a.nbytes for a in host)):
+            args = [ops.to_device(a, dev) for a in host]
+        with tr.step("device.miniblock_decode"):
+            outs = ops.miniblock_decode(
+                *args, rep_bits=rep_bits, def_bits=def_bits, vpe=vpe,
+                tile_entries=tile, fill=0)
+        with tr.step("device.d2h") as st:
+            rep_np, def_np, vals_np = (ops.to_host(a) for a in outs)
+            st.set(bytes=rep_np.nbytes + def_np.nbytes + vals_np.nbytes)
 
         out: List[tuple] = [None] * len(chunk_ids)
-        for j, i in enumerate(sel):
-            k = metas[i]["n_entries"]
-            rep = rep_np[j, :k].astype(np.uint8) if rep_bits else None
-            defs = def_np[j, :k].astype(np.uint8) if def_bits else None
-            valid = (defs == 0) if defs is not None else np.ones(k, bool)
-            n_valid = int(valid.sum())
-            dense = vals_np[j, : k * vpe]
-            if fsl:
-                vals = A.FixedSizeListArray(
-                    lt.with_nullable(False), np.ones(n_valid, bool),
-                    dense.reshape(k, vpe)[valid].astype(dt),
-                )
-            else:
-                vals = A.PrimitiveArray(
-                    lt.with_nullable(False), np.ones(n_valid, bool),
-                    dense[:k][valid].astype(dt),
-                )
-            out[i] = (rep, defs, vals)
-        for i, p in enumerate(kp):
-            if p is None:
-                out[i] = self._decode_chunk(chunk_ids[i], raws[i])
+        with tr.step("miniblock.unpack"):
+            for j, i in enumerate(sel):
+                k = metas[i]["n_entries"]
+                rep = rep_np[j, :k].astype(np.uint8) if rep_bits else None
+                defs = def_np[j, :k].astype(np.uint8) if def_bits else None
+                valid = (defs == 0) if defs is not None else np.ones(k, bool)
+                n_valid = int(valid.sum())
+                dense = vals_np[j, : k * vpe]
+                if fsl:
+                    vals = A.FixedSizeListArray(
+                        lt.with_nullable(False), np.ones(n_valid, bool),
+                        dense.reshape(k, vpe)[valid].astype(dt),
+                    )
+                else:
+                    vals = A.PrimitiveArray(
+                        lt.with_nullable(False), np.ones(n_valid, bool),
+                        dense[:k][valid].astype(dt),
+                    )
+                out[i] = (rep, defs, vals)
+        if len(sel) < len(kp):
+            with tr.step("miniblock.decode"):
+                for i, p in enumerate(kp):
+                    if p is None:
+                        out[i] = self._decode_chunk(chunk_ids[i], raws[i])
         return out
 
     def scan(self, io, io_chunk: int = 8 << 20) -> ShreddedLeaf:
+        tracer = getattr(io, "tracer", None)
+        tr = NULL_TRACER if tracer is None else tracer
         offs = self.meta["chunk_offsets"]
         total = (offs[-1] + self.meta["chunks"][-1]["words"] * 8) if offs else 0
         raw_parts = []
         for p in range(0, total, io_chunk):
             raw_parts.append(io.read(self.base + p, min(io_chunk, total - p), phase=0))
-        raw = np.concatenate(raw_parts) if raw_parts else np.zeros(0, np.uint8)
         n_chunks = len(offs)
-        raws = [
-            raw[offs[ci]: offs[ci] + self.meta["chunks"][ci]["words"] * 8]
-            for ci in range(n_chunks)
-        ]
-        decoded = self._decode_chunks(np.arange(n_chunks), raws,
-                                      tracer=getattr(io, "tracer", None))
-        reps = [d[0] for d in decoded]
-        dfs = [d[1] for d in decoded]
-        vals = [d[2] for d in decoded]
-        rep = np.concatenate(reps) if reps and reps[0] is not None else None
-        defs = np.concatenate(dfs) if dfs and dfs[0] is not None else None
-        if vals:
-            values = A.concat(vals)
-        else:
-            values = empty_values(self.proto.leaf_type)
-        return leaf_slice(self.proto, rep, defs, values, self.meta["n_rows"])
+        with tr.step("miniblock.concat"):
+            raw = np.concatenate(raw_parts) if raw_parts else np.zeros(0, np.uint8)
+            raws = [
+                raw[offs[ci]: offs[ci] + self.meta["chunks"][ci]["words"] * 8]
+                for ci in range(n_chunks)
+            ]
+        decoded = self._decode_chunks(np.arange(n_chunks), raws, tracer=tracer)
+        with tr.step("miniblock.concat"):
+            reps = [d[0] for d in decoded]
+            dfs = [d[1] for d in decoded]
+            vals = [d[2] for d in decoded]
+            rep = np.concatenate(reps) if reps and reps[0] is not None else None
+            defs = np.concatenate(dfs) if dfs and dfs[0] is not None else None
+            if vals:
+                values = A.concat(vals)
+            else:
+                values = empty_values(self.proto.leaf_type)
+            return leaf_slice(self.proto, rep, defs, values, self.meta["n_rows"])
 
 
 # retained as the historical entry points; the implementations are the shared

@@ -126,15 +126,17 @@ class DatasetReader:
         col = self.columns[name]
         if len(rows) == 0:
             return self.fragments[0].take(name, rows)
-        fi, local = self.locate(rows)
-        # concat order = request rows stably grouped by fragment; inv maps
-        # each request position to its row in that concatenation
-        perm = np.argsort(fi, kind="stable")
-        inv = np.empty(len(perm), dtype=np.int64)
-        inv[perm] = np.arange(len(perm), dtype=np.int64)
-        frag_ids = np.unique(fi)
-        with self.tracer.span(f"dataset.take:{name}", cat="reader",
-                              n_rows=len(rows), n_fragments=len(frag_ids)):
+        tr = self.tracer
+        with tr.step("dataset.locate"):
+            fi, local = self.locate(rows)
+            # concat order = request rows stably grouped by fragment; inv maps
+            # each request position to its row in that concatenation
+            perm = np.argsort(fi, kind="stable")
+            inv = np.empty(len(perm), dtype=np.int64)
+            inv[perm] = np.arange(len(perm), dtype=np.int64)
+            frag_ids = np.unique(fi)
+        with tr.span(f"dataset.take:{name}", cat="reader", n_rows=len(rows),
+                     n_fragments=len(frag_ids)) as sp, tr.usage("dataset", sp):
             with self.scheduler.batch(f"take:{name}") as io:
                 # the global rows are the logical requests of this drain
                 io.note_requests(len(rows))
@@ -142,23 +144,26 @@ class DatasetReader:
                     self.fragments[f].take_leaves(name, local[fi == f], io)
                     for f in frag_ids
                 ]
-            if col["kind"] in ("arrow", "packed"):
-                return A.concat(parts).take(inv)
-            n_leaves = len(parts[0])
-            leaves = [
-                reorder_leaf_rows(concat_leaves([p[k] for p in parts]), inv)
-                for k in range(n_leaves)
-            ]
-            return unshred(leaves, type_from_dict(col["type"]))
+            with tr.step("dataset.assemble"):
+                if col["kind"] in ("arrow", "packed"):
+                    return A.concat(parts).take(inv)
+                n_leaves = len(parts[0])
+                leaves = [
+                    reorder_leaf_rows(concat_leaves([p[k] for p in parts]), inv)
+                    for k in range(n_leaves)
+                ]
+                return unshred(leaves, type_from_dict(col["type"]))
 
     def scan(self, name: str, io_chunk: int = 8 << 20) -> A.Array:
         """Full-column scan across all fragments, in global row order."""
-        with self.tracer.span(f"dataset.scan:{name}", cat="reader",
-                              n_fragments=len(self.fragments)):
+        tr = self.tracer
+        with tr.span(f"dataset.scan:{name}", cat="reader",
+                     n_fragments=len(self.fragments)) as sp, tr.usage("dataset", sp):
             with self.scheduler.batch(f"scan:{name}", prefetch=True) as io:
                 parts = [fr.scan_into(name, io, io_chunk=io_chunk)
                          for fr in self.fragments]
-            return A.concat(parts)
+            with tr.step("dataset.assemble"):
+                return A.concat(parts)
 
     # -- accounting ----------------------------------------------------------
     def io_stats(self, coalesce_gap: int = 0):

@@ -13,7 +13,12 @@ Counters, read by tests and ``chip_smoke.py``:
 * ``launches[name]`` — CUDA launches of each kernel (CPU calls never count;
   one ``ivf_topk`` launch is its scoring pass and its merge passes);
 * ``fallbacks["decode.fallback.<encoding>.<reason>"]`` — decode-route
-  fallbacks to the host decoder, under the JAX package's telemetry names.
+  fallbacks to the host decoder, under the JAX package's telemetry names;
+* ``copies`` — tensors that :func:`to_device` and :func:`to_host` moved
+  between the host and a CUDA device (``h2d``, ``d2h``) and their bytes
+  (``h2d_bytes``, ``d2h_bytes``); a CPU tensor crosses nothing and never
+  counts.  While a profiler records, each such copy is also counted under
+  ``ops.copies`` by :data:`~repro_torch.obs.trace.PROFILER_STEPS`.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..obs.trace import NULL_TRACER
 from . import ref
 
 __all__ = [
@@ -45,6 +51,7 @@ __all__ = [
     "reset_counts",
     "launches",
     "fallbacks",
+    "copies",
     "MAX_ENTRIES",
     "MAX_TILE_VALUES",
     "IVF_K_MAX",
@@ -85,12 +92,15 @@ _GATHER_ROUTES = {"bulk": 0, "register": 1}
 launches: Dict[str, int] = {"miniblock_decode": 0, "fullzip_gather": 0,
                             "ivf_topk": 0, "bitunpack": 0}
 fallbacks: Dict[str, int] = {}
+copies: Dict[str, int] = {"h2d": 0, "d2h": 0, "h2d_bytes": 0, "d2h_bytes": 0}
 
 
 def reset_counts() -> None:
-    """Zero the launch counts and forget the fallback counts."""
+    """Zero the launch and copy counts and forget the fallback counts."""
     for k in launches:
         launches[k] = 0
+    for k in copies:
+        copies[k] = 0
     fallbacks.clear()
 
 
@@ -123,12 +133,23 @@ def resolve_device(device=None) -> torch.device:
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host numpy array -> tensor on ``device`` (no copy on the CPU)."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if t.is_cuda:
+        _copied("h2d", t.nbytes)
+    return t
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     """Tensor -> host numpy array (waits for the device)."""
+    if t.is_cuda:
+        _copied("d2h", t.nbytes)
     return t.cpu().numpy()
+
+
+def _copied(way: str, nbytes: int) -> None:
+    copies[way] += 1
+    copies[f"{way}_bytes"] += nbytes
+    NULL_TRACER.tally("ops.copies")  # counted only while a profiler records
 
 
 def pack_words(buf: np.ndarray, pad_words: int = 1) -> np.ndarray:

@@ -25,7 +25,8 @@ from .slo import (DEFAULT_WINDOWS, BurnWindow, Shedder, SLOAlert,
                   SLObjective, SLOMonitor)
 from .timeseries import (NULL_PLANE, GaugeSeries, LogBucketHistogram,
                          MetricsPlane, WindowedHistogram)
-from .trace import NULL_SPAN, NULL_TRACER, NullTracer, Tracer
+from .trace import (NULL_SPAN, NULL_TRACER, PROFILER_STEPS, NullTracer,
+                    ProfilerSteps, Tracer)
 
 __all__ = [
     "Attribution",
@@ -42,6 +43,8 @@ __all__ = [
     "NULL_SPAN",
     "NULL_TRACER",
     "NullTracer",
+    "PROFILER_STEPS",
+    "ProfilerSteps",
     "SLOAlert",
     "SLObjective",
     "SLOMonitor",

@@ -428,7 +428,8 @@ class ReadBatch:
             raise RuntimeError("read on a closed ReadBatch")
         offset, size = int(offset), int(size)
         self.ops.append((offset, size, phase))
-        return self.scheduler.store.disk.read(offset, size)
+        with self.scheduler.tracer.step("store.read", bytes=size):
+            return self.scheduler.store.disk.read(offset, size)
 
     def read_many(self, offsets, sizes, phase: int = 0):
         """Submit one phase-grouped batch of spans in a single dispatch.
@@ -448,7 +449,8 @@ class ReadBatch:
         self.ops.extend(
             (o, s, phase) for o, s in zip(offsets.tolist(), sizes.tolist())
         )
-        return self.scheduler.store.disk.read_gather(offsets, sizes)
+        with self.scheduler.tracer.step("store.gather", n_spans=len(sizes)):
+            return self.scheduler.store.disk.read_gather(offsets, sizes)
 
     def note_useful(self, nbytes: int) -> None:
         self._useful += int(nbytes)

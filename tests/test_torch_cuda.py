@@ -677,3 +677,60 @@ def test_cuda_one_rank_nccl_sharded_moe_backward_matches_moe(cuda_device):
             assert np.isfinite(float(metrics["loss"])) and np.isfinite(float(metrics["grad_norm"]))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ["miniblock", "fullzip"])
+def test_cuda_take_copies_and_steps(cuda_device, kind):
+    """``ops.copies`` counts the take's round trips to the card: 4 copies
+    in and 3 out a mini-block fragment, 2 in and 1 out a full-zip take; the
+    tracer's steps name them, and change no answer; under a profiler, a
+    reader without a tracer gives them to the step recorder."""
+    from repro_torch.core import arrays as A
+    from repro_torch.core import types as T
+    from repro_torch.core.file import WriteOptions
+    from repro_torch.dataset.manifest import write_fragments
+    from repro_torch.dataset.reader import DatasetReader
+    from repro_torch.obs import Tracer
+
+    rng = np.random.default_rng(25)
+    if kind == "miniblock":
+        n, frags, per_fragment = 300_000, 3, 7
+        col = A.PrimitiveArray(T.Primitive("int32", nullable=False), np.ones(n, bool),
+                               rng.integers(8000, 10600, n).astype(np.int32))
+    else:
+        n, frags, per_fragment = 2000, 1, 3
+        t = T.FixedSizeList(T.Primitive("float32", nullable=False), 768, nullable=True)
+        col = A.FixedSizeListArray(t, rng.random(n) > 0.1,
+                                   rng.standard_normal((n, 768)).astype(np.float32))
+    files = write_fragments({"c": col}, frags, WriteOptions("lance", decode="device"))
+    rows = rng.choice(n, 256, replace=False)
+    plain = DatasetReader(files, device="cpu").take("c", rows)
+    tr = Tracer(steps=True)
+    reader = DatasetReader(files, device=cuda_device, tracer=tr)
+    before = dict(ops.copies)
+    got = reader.take("c", rows)
+    moved = {k: ops.copies[k] - before[k] for k in before}
+    assert moved["h2d"] + moved["d2h"] == per_fragment * frags
+    assert moved["d2h"] == (3 if kind == "miniblock" else 1) * frags
+    totals = tr.step_totals()
+    assert totals["device.h2d"][0] == totals["device.d2h"][0] == frags
+    launch = "device.miniblock_decode" if kind == "miniblock" else "device.fullzip_gather"
+    assert totals[launch][0] == frags
+    events = [e for e in tr.events if e.get("cat") == "step"]
+    assert sum(e["args"]["bytes"] for e in events if e["name"] == "device.h2d") == \
+        moved["h2d_bytes"]
+    assert sum(e["args"]["bytes"] for e in events if e["name"] == "device.d2h") == \
+        moved["d2h_bytes"]
+    assert np.array_equal(plain.validity, got.validity)
+    assert np.array_equal(plain.values, got.values)
+    # a reader with no tracer, under a profiler: the recorder counts the copies
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import PROFILER_STEPS
+
+    untraced = DatasetReader(files, device=cuda_device)
+    untraced.take("c", rows)
+    with profile(activities=[ProfilerActivity.CPU]):
+        untraced.take("c", rows)
+    assert PROFILER_STEPS.metrics.counter_values()["ops.copies"] == per_fragment * frags
+    assert PROFILER_STEPS.step_totals()[launch][0] == frags
