@@ -210,7 +210,10 @@ Phases, one JSON object per line on stdout:
    could take (bytes over 3.35 TB/s or operations over 67 T/s, whichever
    is larger); and one more ``bitunpack`` row at 2**24 values of 11 bits
    (``"step": "2**24"``, no launches on any path: it shows whether the
-   kernel reaches the bandwidth regime);
+   kernel reaches the bandwidth regime), and one more ``miniblock_take`` row
+   at the shape of one fragment of the benchmark's date take (40 chunks of
+   4,096 entries at 14 bits, 42 rows; ``"step": "date take"``, no launches
+   on any path);
 17. the ``kernels`` line, then ``{"ok": true, "device": {...}}`` last.
 
 Between the sweep and the dataset, ``gather_streams`` holds the gather's
@@ -394,11 +397,16 @@ KERNEL_REPLACES = {
     "fullzip_gather": "src/repro/kernels/fullzip_gather.py:35",
     "ivf_topk": "src/repro/kernels/ivf_topk.py:70",
     "bitunpack": "src/repro/kernels/bitunpack.py:46",
+    "miniblock_take": None,  # none: the JAX package selects a take's rows on the host
 }
 # the wrapper each kernel is timed through, and the size of its input that
 # picks the largest call of a path
 WRAPPERS = {"miniblock_decode": "miniblock_decode", "fullzip_gather": "fullzip_gather",
-            "ivf_topk": "ivf_topk_tensors", "bitunpack": "bitunpack"}
+            "ivf_topk": "ivf_topk_tensors", "bitunpack": "bitunpack",
+            "miniblock_take": "miniblock_take"}
+# the miniblock_take row at one fragment of the benchmark's date take
+# (bench/: 6.0M dates in 6 files, 256 rows a take): its chunks and rows
+DATE_TAKE = {"chunks": 40, "rows": 42, "bits": 14}
 
 
 def emit(obj) -> None:
@@ -677,6 +685,11 @@ def sweep_phase():
                                         kw["tile_entries"], kw["rep_bits"], kw["def_bits"],
                                         kw["vpe"], kw["fill"])
         tally("miniblock_decode", *_compare(got, want), sum(g.numel() for g in got), t, kw)
+    for _, case, kw in ref.miniblock_take_cases(rng):
+        t = [torch.from_numpy(a).to(dev) for a in case]
+        got = ops.miniblock_take(*t, **kw)
+        want = ref.miniblock_take_words_ref(*t, kw["def_bits"], kw["vpe"], kw["fill"])
+        tally("miniblock_take", *_compare((got,), (want,)), got.numel(), t, kw)
     for _, zipped, rows, offset in ref.gather_cases(rng):
         zipped = ref.at_offset(zipped, dev, offset)
         rows = torch.from_numpy(rows).to(dev)
@@ -955,7 +968,7 @@ def take_path_phase(table, files, rng, probe):
     emit({"phase": "take_path", "checked": "exact vs decode=numpy and the source table; "
           "identical io_stats and modelled_time", "launches": launches,
           "fallbacks": fallbacks})
-    for name in ("miniblock_decode", "fullzip_gather"):
+    for name in ("miniblock_decode", "fullzip_gather", "miniblock_take"):
         check(launches[name] > 0, f"{name} never launched on the take path")
     check(not fallbacks, f"eligible columns fell back to the host: {fallbacks}")
     return launches
@@ -3213,6 +3226,26 @@ def kernel_case(name, a, kw):
             "bytes": (4 * ((rw.numel() if rb else 0) + (dw.numel() if db else 0) + vw.numel()
                            + p.numel()) + sum(4 * g.numel() for g in got)),
             "operations": sum(g.numel() for g in got), "ops_per_s": INT_OPS_PER_S}
+    if name == "miniblock_take":
+        dw, vw, p, pairs = a
+        db, vpe, fill = kw["def_bits"], kw.get("vpe", 1), kw.get("fill", 0)
+        got = ops.miniblock_take(*a, **kw)
+        buf = torch.empty_like(got)
+        plain = lambda: ref.miniblock_take_words_ref(*a, db, vpe, fill)  # noqa: E731
+        rows = got.shape[0]
+        return {
+            "launch": lambda: ops.launch_miniblock_take(*a, buf, def_bits=db, vpe=vpe,
+                                                        fill=fill),
+            "plain": plain, "library": None,
+            "check": lambda: (*_compare((got,), (plain(),)), {}),
+            "shape": {"chunks": vw.shape[0], "def_words": dw.shape[1],
+                      "val_words": vw.shape[1], "rows": rows, "def_bits": db, "vpe": vpe,
+                      "fill": fill},
+            # each row: its pair, its chunk's params and its values read
+            # once, the def words up to its entry, its outputs written once
+            "bytes": rows * (4 + 12 + 4 * vpe) + 4 * got.numel()
+            + (4 * int(((pairs.to(torch.int64) & 4095) * db // 32 + 1).sum()) if db else 0),
+            "operations": got.numel(), "ops_per_s": INT_OPS_PER_S}
     if name == "fullzip_gather":
         zipped, rows = a
         got = ops.fullzip_gather(zipped, rows)
@@ -3318,6 +3351,12 @@ def measure_phase(probe, smallest, launches, sweep, rng):
     w = rng.integers(0, 1 << 32, -(-n * BITUNPACK_BITS // 32), dtype=np.uint64)
     words = ops.to_device(w.astype(np.uint32), ops.resolve_device())
     measure(*key, (words, n, BITUNPACK_BITS), {}, probe.launched.get(key, 0))
+    key = ("miniblock_take", "take", "date take")
+    bits = DATE_TAKE["bits"]
+    case = ref.miniblock_take_case(rng, 0, 1, DATE_TAKE["chunks"], DATE_TAKE["rows"],
+                                   n_range=(4096, 4096), min_bits=bits, max_bits=bits)
+    a = tuple(ops.to_device(x, ops.resolve_device()) for x in case)
+    measure(*key, a, {"def_bits": 0, "vpe": 1, "fill": 0}, probe.launched.get(key, 0))
     return out
 
 

@@ -25,8 +25,9 @@ Random access runs as a batched decode-once pipeline (see
 rows, one phase-grouped ``read_many`` IO dispatch, each chunk decoded
 exactly once (optionally on the GPU via the ``decode='device'`` knob — the
 power-of-two/8-aligned chunk rules make the kernel's fixed per-chunk tiling
-possible), and a single segment-id permutation back to request order.  The
-logical IOPS/byte trace is the same on either route.
+possible), and a single segment-id permutation back to request order; on the
+device route a column without repetition levels decodes just the requested
+entries.  The logical IOPS/byte trace is the same on every route.
 """
 
 from __future__ import annotations
@@ -160,6 +161,16 @@ def _parse_chunk(raw: np.ndarray) -> List[np.ndarray]:
     return bufs
 
 
+def _stack_words(bufs: List[np.ndarray]) -> np.ndarray:
+    """Packed streams -> one zero-padded uint32 word row each, with a word
+    of padding past the longest (the rows the kernels take)."""
+    rows = [ops.pack_words(b, pad_words=1) for b in bufs]
+    out = np.zeros((len(rows), max(len(r) for r in rows)), dtype=np.uint32)
+    for j, r in enumerate(rows):
+        out[j, : len(r)] = r
+    return out
+
+
 def encode_miniblock(
     leaf: ShreddedLeaf,
     fixed_codec: Optional[str] = None,
@@ -271,7 +282,10 @@ class MiniBlockReader(ColumnReader):
     dispatch and decoded exactly once, row extraction is a single
     segment-id/gather permutation over the concatenated entry streams, and
     the result is fanned back out to request order with one
-    :func:`~repro_torch.core.encodings_base.reorder_leaf_rows` pass.
+    :func:`~repro_torch.core.encodings_base.reorder_leaf_rows` pass.  Where
+    each row is one entry (no repetition levels) and the kernels cover every
+    needed chunk, the device route instead decodes only the requested
+    entries (the ``miniblock_take`` kernel), so no chunk is decoded whole.
 
     ``decode`` selects the chunk decoder: ``"numpy"`` (host) or ``"device"``
     (the ``miniblock_decode`` kernel of :mod:`repro_torch.kernels` on
@@ -349,13 +363,19 @@ class MiniBlockReader(ColumnReader):
             sizes = np.array([self.meta["chunks"][c]["words"] * 8 for c in needed],
                              dtype=np.int64)
 
+            kp = self._take_kernel_params(needed)
+
         # IO: every needed chunk exactly once, one phase-0 batch dispatch
         data, doffs = io.read_many(self.base + offs[needed], sizes, phase=0)
         raws = [data[doffs[i]: doffs[i + 1]] for i in range(len(needed))]
+        if kp is not None:
+            return self._take_on_device(needed, raws, kp, c0, rows_before, urows, inv,
+                                        io, tracer)
 
         # decode each chunk exactly once (numpy or batched on the device)
         decoded = self._decode_chunks(needed, raws, tracer=tracer)
         with tr.step("miniblock.select"):
+            tr.tally("miniblock.rows_on_host", len(urows))
             return self._select(decoded, needed, rows_before, urows, inv, io)
 
     def _select(self, decoded, needed, rows_before, urows, inv, io) -> ShreddedLeaf:
@@ -397,6 +417,68 @@ class MiniBlockReader(ColumnReader):
         # from the decoded result, not re-read, so amplification stays >= 1
         io.note_useful(value_bytes(dec.values))
         return reorder_leaf_rows(dec, inv)  # fan out to request order
+
+    def _take_kernel_params(self, needed) -> Optional[List[tuple]]:
+        """Each needed chunk's ``(bits, ref)`` when a take selects its rows
+        on the device, else None.  It does under ``decode='device'`` for a
+        column without repetition levels (each row is one entry, at ``row -
+        rows_before[c0]`` of its chunk) that the kernels cover, when every
+        needed chunk's value codec is within their int32 extract.  Every
+        other take decodes its chunks whole and selects on the host, counting
+        its fallbacks as before."""
+        if (self.decode != "device" or self.proto.max_rep > 0
+                or len(needed) > ops.MAX_TAKE_CHUNKS
+                or self._pallas_ineligible_reason() is not None):
+            return None
+        vbi = 1 if level_bits(self.proto.max_def) else 0
+        kp = [self._chunk_kernel_params(self.meta["chunks"][c]["bufmeta"][vbi])
+              for c in needed]
+        return None if any(p is None for p in kp) else kp
+
+    def _take_on_device(self, needed, raws, kp, c0, rows_before, urows, inv, io,
+                        tracer) -> ShreddedLeaf:
+        """The unique rows ``urows`` selected on the device: one
+        ``miniblock_take`` launch decodes each row's entry alone, given as its
+        chunk's place among ``needed`` and its place in that chunk; nulls
+        are dropped on the host, and the rows fanned out to request order."""
+        tr = NULL_TRACER if tracer is None else tracer
+        tr.tally("miniblock.chunks", len(raws))
+        lt = self.proto.leaf_type
+        fsl = isinstance(lt, T.FixedSizeList)
+        vpe = lt.size if fsl else 1
+        dt = np.dtype(lt.child.dtype if fsl else lt.dtype)
+        def_bits = level_bits(self.proto.max_def)
+        with tr.step("miniblock.parse"):
+            parsed = [_parse_chunk(raw) for raw in raws]
+        with tr.step("miniblock.pack"):
+            params = np.array([(self.meta["chunks"][c]["n_entries"], *p)
+                               for c, p in zip(needed, kp)], dtype=np.int32)
+            def_words = (_stack_words([b[0] for b in parsed]) if def_bits
+                         else np.zeros((len(raws), 1), dtype=np.uint32))
+            val_words = _stack_words([b[1 if def_bits else 0] for b in parsed])
+
+        with tr.step("miniblock.select"):
+            tr.tally("miniblock.rows_on_card", len(urows))
+            pairs = (np.searchsorted(needed, c0) * MAX_CHUNK_VALUES
+                     + (urows - rows_before[c0])).astype(np.int32)
+            host = (def_words, val_words, params, pairs)
+            with tr.step("device.h2d", bytes=sum(a.nbytes for a in host)):
+                args = [ops.to_device(a, self.device) for a in host]
+            with tr.step("device.miniblock_take"):
+                out = ops.miniblock_take(*args, def_bits=def_bits, vpe=vpe, fill=0)
+            with tr.step("device.d2h") as st:
+                got = ops.to_host(out)
+                st.set(bytes=got.nbytes)
+            defs = got[:, vpe].astype(np.uint8) if def_bits else None
+            dense = got[defs == 0, :vpe] if def_bits else got
+            dense = dense.astype(dt)
+            ones = np.ones(len(dense), bool)
+            vals = (A.FixedSizeListArray(lt.with_nullable(False), ones, dense) if fsl
+                    else A.PrimitiveArray(lt.with_nullable(False), ones, dense[:, 0]))
+            dec = leaf_slice(self.proto, None, defs, vals, len(urows))
+            # useful bytes over unique rows, as _select counts them
+            io.note_useful(value_bytes(dec.values))
+            return reorder_leaf_rows(dec, inv)
 
     # ------------------------------------------------------------------
     def _decode_chunks(self, chunk_ids, raws, tracer=None) -> List[tuple]:

@@ -26,7 +26,7 @@ __all__ = ["load_kernels", "build_kernels", "SOURCES", "HEADERS", "BUILD_DIR",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("miniblock_decode.cu", "fullzip_gather.cu", "ivf_topk.cu",
-           "bitunpack.cu")
+           "bitunpack.cu", "miniblock_take.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,6 +43,8 @@ _ENTRY = {
                     [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "bitunpack.cu": ("bitunpack_launch", [_P, _P, _L, _I, _I, _I, _P]),
+    "miniblock_take.cu": ("miniblock_take_launch",
+                          [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _P]),
 }
 # headers every source may include; a change to one rebuilds them all
 HEADERS = ("device_guard.cuh",)

@@ -36,11 +36,13 @@ from . import ref
 __all__ = [
     "bitunpack",
     "miniblock_decode",
+    "miniblock_take",
     "fullzip_gather",
     "ivf_topk",
     "ivf_topk_tensors",
     "launch_bitunpack",
     "launch_miniblock_decode",
+    "launch_miniblock_take",
     "launch_fullzip_gather",
     "launch_ivf_topk",
     "pack_words",
@@ -54,6 +56,7 @@ __all__ = [
     "copies",
     "MAX_ENTRIES",
     "MAX_TILE_VALUES",
+    "MAX_TAKE_CHUNKS",
     "IVF_K_MAX",
     "IVF_ID_SENTINEL",
     "fullzip_plan",
@@ -63,6 +66,9 @@ __all__ = [
 
 MAX_ENTRIES = 4096  # the format's per-chunk value ceiling (sec 4.2.1)
 MAX_TILE_VALUES = 1 << 17  # tile_entries * vpe ceiling the readers keep to
+# chunks a miniblock_take launch can address: a requested entry is one int32,
+# (chunk << 12) | entry
+MAX_TAKE_CHUNKS = 1 << (31 - ref.TAKE_ENTRY_BITS)
 # largest k the ivf_topk kernel selects (csrc/ivf_topk.cu: a merge CTA sorts
 # at least four k-long lists at once in its 4,096-pair buffer)
 IVF_K_MAX = 1024
@@ -90,7 +96,7 @@ _GATHER_BLOCKS_PER_SM = {"bulk": 3, "register": 16}
 _GATHER_ROUTES = {"bulk": 0, "register": 1}
 
 launches: Dict[str, int] = {"miniblock_decode": 0, "fullzip_gather": 0,
-                            "ivf_topk": 0, "bitunpack": 0}
+                            "ivf_topk": 0, "bitunpack": 0, "miniblock_take": 0}
 fallbacks: Dict[str, int] = {}
 copies: Dict[str, int] = {"h2d": 0, "d2h": 0, "h2d_bytes": 0, "d2h_bytes": 0}
 
@@ -303,6 +309,82 @@ def launch_miniblock_decode(rep_words, def_words, val_words, params,
         dev.index, _stream(dev))
     _raise_on(err, "miniblock_decode")
     launches["miniblock_decode"] += 1
+
+
+def miniblock_take(
+    def_words: torch.Tensor,
+    val_words: torch.Tensor,
+    params: torch.Tensor,
+    pairs: torch.Tensor,
+    *,
+    def_bits: int,
+    vpe: int = 1,
+    fill: int = 0,
+) -> torch.Tensor:
+    """The requested entries of C mini-block chunks without repetition
+    levels -> ``(R, vpe + (def_bits > 0))`` int32: each entry's ``vpe``
+    values (``fill`` at a null) and, where ``def_bits`` > 0, its definition
+    level in the last column.
+
+    ``def_words``, ``val_words`` and ``params`` are as
+    :func:`miniblock_decode` takes them; ``pairs`` is ``(R,)`` int32
+    ``(j << 12) | e``, entry ``e`` of chunk ``j``.  A pair outside its chunk
+    reads ``fill`` and definition level -1 (:func:`ref.miniblock_take_ref`).
+    On the CPU the plain version runs (:func:`ref.miniblock_take_words_ref`),
+    its decode through :func:`miniblock_decode`: the chunks decoded whole,
+    then the pairs' entries taken from the tiles.
+    """
+    dev = val_words.device
+    C = val_words.shape[0]
+    for t, nm in ((def_words, "def_words"), (val_words, "val_words")):
+        _check(t, nm, torch.uint32, 2, dev)
+        if t.shape[0] != C or t.shape[1] < 1:
+            raise ValueError(f"{nm} must be ({C}, >=1), got {tuple(t.shape)}")
+    _check(params, "params", torch.int32, 2, dev)
+    if tuple(params.shape) != (C, 3):
+        raise ValueError(f"params must be ({C}, 3), got {tuple(params.shape)}")
+    _check(pairs, "pairs", torch.int32, 1, dev)
+    if C > MAX_TAKE_CHUNKS:
+        raise ValueError(f"at most {MAX_TAKE_CHUNKS} chunks a take, got {C}")
+    if not 1 <= vpe <= MAX_TILE_VALUES // MAX_ENTRIES:
+        raise ValueError(f"vpe must be in [1, {MAX_TILE_VALUES // MAX_ENTRIES}], got {vpe}")
+    if not 0 <= def_bits <= 31:
+        raise ValueError("def_bits must be in [0, 31]")
+    R = pairs.shape[0]
+    if dev.type == "cpu":
+        defs = vals = torch.zeros((0, 1), dtype=torch.int32)
+        if C and R:
+            tile = -(-max(1, int(params[:, 0].max())) // 128) * 128
+            _, defs, vals = miniblock_decode(
+                torch.zeros((C, 1), dtype=torch.uint32), def_words, val_words, params,
+                rep_bits=0, def_bits=def_bits, vpe=vpe, tile_entries=tile, fill=fill)
+        return ref.miniblock_take_ref(defs, vals, params[:, 0], pairs, def_bits, vpe, fill)
+    def_words, val_words, params, pairs = (
+        t.contiguous() for t in (def_words, val_words, params, pairs))
+    out = torch.empty((R, vpe + (1 if def_bits else 0)), dtype=torch.int32, device=dev)
+    if R:
+        if C:
+            launch_miniblock_take(def_words, val_words, params, pairs, out,
+                                  def_bits=def_bits, vpe=vpe, fill=fill)
+        else:  # no chunk to find an entry in: every pair lies outside
+            out[:, :vpe] = fill
+            if def_bits:
+                out[:, vpe] = -1
+    return out
+
+
+def launch_miniblock_take(def_words, val_words, params, pairs, out, *,
+                          def_bits: int, vpe: int, fill: int) -> None:
+    """Launch the ``miniblock_take`` kernel on tensors the wrapper has
+    checked (contiguous, on one CUDA device, at least one chunk and one
+    pair, a fresh output): one warp a requested entry."""
+    dev = val_words.device
+    err = _lib().miniblock_take_launch(
+        _ptr(def_words), _ptr(val_words), _ptr(params), _ptr(pairs), _ptr(out),
+        val_words.shape[0], pairs.shape[0], def_words.shape[1], val_words.shape[1],
+        def_bits, vpe, int(fill), dev.index, _stream(dev))
+    _raise_on(err, "miniblock_take")
+    launches["miniblock_take"] += 1
 
 
 def fullzip_gather(zipped: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 __all__ = ["bitunpack_ref", "miniblock_decode_ref", "miniblock_slice_slots",
+           "miniblock_take_ref", "miniblock_take_words_ref", "miniblock_take_case",
+           "miniblock_take_cases",
            "fullzip_gather_ref", "ivf_topk_ref", "ivf_topk_mismatches", "ivf_topk_scale",
            "miniblock_case", "miniblock_edge_cases", "bitunpack_cases", "gather_cases",
            "ivf_hazard_cases", "at_offset", "IVF_ID_SENTINEL"]
@@ -159,6 +161,58 @@ def miniblock_slice_slots(def_words: torch.Tensor, n_entries: torch.Tensor, def_
         zeros = torch.cat([torch.zeros((C, 1), dtype=torch.int64, device=dev), zeros], 1)
         before = zeros[:, starts]
     return torch.where(n > starts, before, torch.zeros_like(before))
+
+
+TAKE_ENTRY_BITS = 12  # a requested entry is (chunk << 12) | entry, entry < 4,096
+
+
+def miniblock_take_ref(defs: torch.Tensor, vals: torch.Tensor, n_entries: torch.Tensor,
+                       pairs: torch.Tensor, def_bits: int, vpe: int = 1,
+                       fill: int = 0) -> torch.Tensor:
+    """The requested entries of C decoded mini-block chunks -> ``(R, vpe +
+    (def_bits > 0))`` int32: each entry's ``vpe`` values and, where
+    ``def_bits`` > 0, its definition level in the last column.
+
+    ``defs`` and ``vals`` are :func:`miniblock_decode_ref`'s ``(C, tile)``
+    and ``(C, tile * vpe)`` tiles (``fill`` at nulls); ``pairs`` is ``(R,)``
+    int32 ``(j << 12) | e``, entry ``e`` of chunk ``j``.  A pair outside its
+    chunk (``j`` not in ``[0, C)``, or ``e`` not below ``n_entries[j]``)
+    reads ``fill`` everywhere and definition level -1.  This is the index
+    that ``csrc/miniblock_take.cu`` consumes, applied to whole decoded
+    chunks: the kernel decodes only the requested entries.
+    """
+    dev = vals.device
+    C = vals.shape[0]
+    p = pairs.to(device=dev, dtype=torch.int64)
+    j, e = p >> TAKE_ENTRY_BITS, p & ((1 << TAKE_ENTRY_BITS) - 1)
+    inside = (j >= 0) & (j < C)
+    jc = torch.where(inside, j, torch.zeros_like(j))
+    if C:
+        inside &= e < n_entries.to(device=dev, dtype=torch.int64)[jc]
+    ec = torch.where(inside, e, torch.zeros_like(e))
+    out = torch.full((len(p), vpe + (1 if def_bits else 0)), fill, dtype=torch.int32,
+                     device=dev)
+    if C:
+        cols = ec.unsqueeze(1) * vpe + torch.arange(vpe, device=dev)
+        out[:, :vpe] = torch.where(inside.unsqueeze(1), vals[jc.unsqueeze(1), cols],
+                                   out[:, :vpe])
+    if def_bits:
+        out[:, vpe] = torch.where(inside, defs[jc, ec], -1) if C else -1
+    return out
+
+
+def miniblock_take_words_ref(def_words: torch.Tensor, val_words: torch.Tensor,
+                             params: torch.Tensor, pairs: torch.Tensor, def_bits: int,
+                             vpe: int = 1, fill: int = 0) -> torch.Tensor:
+    """``miniblock_take`` on the inputs the kernel takes, on any device: the
+    chunks decoded whole by :func:`miniblock_decode_ref`, then
+    :func:`miniblock_take_ref`."""
+    C = val_words.shape[0]
+    tile = -(-max(1, int(params[:, 0].max()) if C else 1) // 128) * 128
+    _, defs, vals = miniblock_decode_ref(
+        torch.zeros((C, 1), dtype=torch.uint32, device=val_words.device), def_words,
+        val_words, params[:, 0], params[:, 1], params[:, 2], tile, 0, def_bits, vpe, fill)
+    return miniblock_take_ref(defs, vals, params[:, 0], pairs, def_bits, vpe, fill)
 
 
 def fullzip_gather_ref(zipped: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -344,6 +398,64 @@ def miniblock_edge_cases(rng: np.random.Generator):
                               kw.pop("ref_range", (-100, 100)), **kw)
         yield label, case, dict(rep_bits=rb, def_bits=db, vpe=vpe, tile_entries=tile,
                                 fill=-9)
+
+
+def miniblock_take_case(rng: np.random.Generator, def_bits: int, vpe: int, n_chunks: int,
+                        n_rows: int, tile: int = 4096, max_bits: int = 24,
+                        ref_range=(-100, 100), **kw):
+    """Random ``miniblock_take`` inputs as numpy arrays: ``(def_words,
+    val_words, params, pairs)``, the chunks of :func:`miniblock_case` (no
+    repetition levels; ``kw`` goes to it) and ``n_rows`` requested entries in
+    random order: every chunk's first and last entry where there are rows
+    enough, the rest uniform over the chunks' entries, one in eight a
+    duplicate of an earlier one."""
+    _, def_words, val_words, params = miniblock_case(
+        rng, 0, def_bits, vpe, n_chunks, tile, max_bits, ref_range, **kw)
+    n = params[:, 0].astype(np.int64)
+    ends = [(c, e) for c in range(n_chunks) for e in sorted({0, int(n[c]) - 1})]
+    ends = ends[: n_rows // 2]
+    j = rng.integers(0, n_chunks, n_rows - len(ends))
+    e = (rng.random(len(j)) * n[j]).astype(np.int64)
+    pairs = np.array([c << TAKE_ENTRY_BITS | x for c, x in ends]
+                     + list(j << TAKE_ENTRY_BITS | e), dtype=np.int64)
+    dup = rng.random(n_rows) < 0.125
+    dup[0] = False
+    pairs[dup] = pairs[rng.integers(0, np.maximum(1, np.nonzero(dup)[0]))]
+    return def_words, val_words, params, rng.permutation(pairs).astype(np.int32)
+
+
+def miniblock_take_cases(rng: np.random.Generator):
+    """The ``miniblock_take`` sweep, as ``(label, (def_words, val_words,
+    params, pairs), kwargs)``: def widths counted word by word (1, 2) and
+    field by field (3, 5), with nulls everywhere or nowhere; value widths 1,
+    14 and 31 and a frame of reference that wraps; 1, 3, 4 and 32 values an
+    entry; one row, rows past their chunk, and the date take's shape (40
+    chunks of 4,096 entries at 14 bits, 42 rows)."""
+    wrap = (1 << 30, (1 << 31) - 1)
+    cases = []
+    for db in (0, 1, 2, 3, 5):
+        cases.append((f"def_bits={db}", (db, 1, 6, 97), {}))
+    for nulls in ("all", "none"):
+        cases.append((f"nulls={nulls}", (2, 1, 4, 40), {"nulls": nulls}))
+    for bits in (1, 14, 31):
+        cases.append((f"value width {bits}", (1, 1, 5, 64),
+                      {"min_bits": bits, "max_bits": bits}))
+    cases.append(("value width 31, FoR wraps", (2, 1, 4, 64),
+                  {"min_bits": 31, "max_bits": 31, "ref_range": wrap}))
+    for vpe, db in ((3, 0), (4, 1), (32, 2)):
+        cases.append((f"vpe={vpe} def_bits={db}", (db, vpe, 4, 50), {"max_bits": 31}))
+    cases.append(("one row", (1, 1, 3, 1), {}))
+    cases.append(("date take: 40 x 4,096 at 14 bits, 42 rows", (0, 1, 40, 42),
+                  {"n_range": (4096, 4096), "min_bits": 14, "max_bits": 14}))
+    for label, (db, vpe, C, R), kw in cases:
+        tile = 4096 if vpe * 4096 <= 1 << 17 else 1024
+        case = miniblock_take_case(rng, db, vpe, C, R, tile, kw.pop("max_bits", 24),
+                                   kw.pop("ref_range", (-100, 100)), **kw)
+        yield label, case, dict(def_bits=db, vpe=vpe, fill=-9)
+    dw, vw, params, pairs = miniblock_take_case(rng, 1, 2, 3, 20, 512)
+    n = int(params[0, 0])
+    pairs[:4] = [3 << TAKE_ENTRY_BITS, n, -1, (1 << 31) - 1]  # no chunk 3; entry n; negative
+    yield "rows past their chunk", (dw, vw, params, pairs), dict(def_bits=1, vpe=2, fill=-9)
 
 
 def bitunpack_cases(rng: np.random.Generator):

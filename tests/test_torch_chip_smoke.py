@@ -35,8 +35,10 @@ def test_chip_smoke_rehearses_on_the_cpu(rehearsal):
     kernels = json.loads(lines[-2])["kernels"]
     for k in kernels:
         assert KEYS <= set(k), KEYS - set(k)
-        # the 2**24 unpack row is off every path; every other row's path launched it
-        assert (k["launches"] > 0) != (k["step"] == "2**24") and k["mismatches"] == 0
+        # the 2**24 unpack and date-take rows are off every path; every other
+        # row's path launched it
+        assert (k["launches"] > 0) != (k["step"] in ("2**24", "date take"))
+        assert k["mismatches"] == 0
         assert k["source"] == f"src/repro_torch/kernels/csrc/{k['name']}.cu"
         assert (k["library_ms"] is None) == (k["name"] != "fullzip_gather")
     entries = {(k["name"], k["path"], k["step"]) for k in kernels}
@@ -49,7 +51,8 @@ def test_chip_smoke_rehearses_on_the_cpu(rehearsal):
             ("fullzip_gather", "kv", None), ("fullzip_gather", "lm", None),
             ("ivf_topk", "search", "probe"), ("bitunpack", "bitunpack", None),
             ("miniblock_decode", "train", None), ("miniblock_decode", "moe_train", None),
-            ("bitunpack", "bitunpack", "2**24")} <= entries
+            ("bitunpack", "bitunpack", "2**24"), ("miniblock_take", "take", None),
+            ("miniblock_take", "take", "date take")} <= entries
     assert {s for n, _, s in entries if n == "ivf_topk"} == {
         "probe", "candidates q=1", "candidates q=4", "candidates q=8"}
     phases = [json.loads(ln).get("phase") for ln in lines if ln.startswith("{")]

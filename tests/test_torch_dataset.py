@@ -65,7 +65,8 @@ def test_take_matches_reference(fragments, column, n_take):
     assert_same_array(want.take(column, rows), got.take(column, rows))
     assert_same_io(want, got)
     assert ops.launches == {"miniblock_decode": 0, "fullzip_gather": 0,
-                            "ivf_topk": 0, "bitunpack": 0}
+                            "ivf_topk": 0, "bitunpack": 0,
+                            "miniblock_take": 0}
 
 
 @pytest.mark.parametrize("column", ["id", "score", "tags", "name", "emb", "quad"])
@@ -159,7 +160,8 @@ def test_tiered_dataset_matches_reference(fragments, spec):
             evictions += dev.tier_stats()[0].evictions
     assert (evictions > 0) == (spec == "small")
     assert ops.launches == {"miniblock_decode": 0, "fullzip_gather": 0,
-                            "ivf_topk": 0, "bitunpack": 0}
+                            "ivf_topk": 0, "bitunpack": 0,
+                            "miniblock_take": 0}
 
 
 def test_tiered_dataset_scan_readahead_crosses_fragments(fragments):

@@ -71,6 +71,8 @@ def test_cpu_calls_run_the_plain_versions_and_count_no_launch():
     ops.reset_counts()
     case = _miniblock_case(3, 1, 2, 1, 2)
     ops.miniblock_decode(*_torch_args(case), rep_bits=1, def_bits=2, tile_entries=1024)
+    _, dw, vw, params = _torch_args(case)
+    ops.miniblock_take(dw, vw, params, torch.tensor([0, 4097], dtype=torch.int32), def_bits=2)
     z = torch.zeros((5, 9), dtype=torch.uint8)
     assert ops.fullzip_gather(z, torch.zeros(0, dtype=torch.int32)).shape == (0, 9)
     ops.fullzip_gather(z, torch.tensor([4, 0, 4], dtype=torch.int32))
@@ -78,7 +80,8 @@ def test_cpu_calls_run_the_plain_versions_and_count_no_launch():
     ops.ivf_topk_tensors(torch.ones((2, 3)), torch.zeros((4, 3)),
                          torch.arange(4, dtype=torch.int32), 2)
     assert ops.launches == {"miniblock_decode": 0, "fullzip_gather": 0,
-                            "ivf_topk": 0, "bitunpack": 0}
+                            "ivf_topk": 0, "bitunpack": 0,
+                            "miniblock_take": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -113,14 +116,16 @@ def test_pack_words_matches_reference():
 def test_kernel_sources_declare_their_entry_points():
     """The CUDA sources cannot compile here; check statically that each one
     exists, exports the C symbol the loader binds with the declared number
-    of arguments, and names the TPU kernel it replaces."""
+    of arguments, and names the TPU kernel it replaces (or says that it
+    replaces none)."""
     for src, (symbol, argtypes) in build._ENTRY.items():
         assert src in build.SOURCES
         text = (build.CSRC / src).read_text()
         m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
         assert m, f"{src} does not export {symbol}"
         assert len(m.group(1).split(",")) == len(argtypes)
-        assert "Replaces the TPU kernel src/repro/kernels/" in text
+        assert ("Replaces the TPU kernel src/repro/kernels/" in text
+                or "Replaces no TPU kernel." in text)
         assert "What bounds it:" in text
         # each launcher takes the device index before the stream
         assert [a.strip() for a in m.group(1).split(",")[-2:]] == ["int device",

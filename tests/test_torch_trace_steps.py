@@ -20,9 +20,10 @@ from repro_torch.obs import NULL_SPAN, NULL_TRACER, PROFILER_STEPS, Tracer
 
 N_ROWS, N_FRAGMENTS, N_VECTORS = 300_000, 3, 1500
 
+# the date column is flat: a take's rows are selected on the device
 TAKE_STEPS = {"dataset.locate", "dataset.assemble", "miniblock.locate", "miniblock.parse",
-              "miniblock.pack", "miniblock.unpack", "miniblock.select", "store.gather",
-              "device.h2d", "device.miniblock_decode", "device.d2h"}
+              "miniblock.pack", "miniblock.select", "store.gather",
+              "device.h2d", "device.miniblock_take", "device.d2h"}
 SCAN_STEPS = {"dataset.assemble", "file.assemble", "miniblock.concat", "miniblock.parse", "miniblock.pack",
               "miniblock.unpack", "store.read", "device.h2d", "device.miniblock_decode",
               "device.d2h"}
@@ -108,7 +109,8 @@ def test_take_records_each_step_and_counts_chunks(date_files):
     assert 0 < chunks < sum(len(f.columns["c"]["leaves"][0]["meta"]["rep_index"])
                             for f in r.fragments)
     assert counts["miniblock.chunks"] == chunks
-    assert set(counts) == {"miniblock.chunks", "dataset.sys_us"}
+    assert counts["miniblock.rows_on_card"] == len(np.unique(rows))
+    assert set(counts) == {"miniblock.chunks", "miniblock.rows_on_card", "dataset.sys_us"}
     span = next(e for e in tr.events if e["name"] == "dataset.take:c")
     assert span["args"]["sys_us"] == counts["dataset.sys_us"] >= 0
     steps = [e for e in tr.events if e.get("cat") == "step"]
@@ -201,7 +203,8 @@ def test_without_steps_a_profiled_take_goes_to_the_recorder(date_files):
         assert totals[name][0] == frags, name
     counts = PROFILER_STEPS.metrics.counter_values()
     assert counts["miniblock.chunks"] == needed_chunks(r, rows)
-    assert set(counts) == {"miniblock.chunks", "dataset.sys_us"}  # no copy on the CPU
+    # no copy on the CPU
+    assert set(counts) == {"miniblock.chunks", "miniblock.rows_on_card", "dataset.sys_us"}
     assert TAKE_STEPS <= {e.key for e in prof.key_averages()}
     assert r.tracer is NULL_TRACER and NULL_TRACER.events == []
     assert PROFILER_STEPS.events == []

@@ -176,7 +176,8 @@ def _stub_cuda() -> None:
     for name, wrapper in (("miniblock_decode", "miniblock_decode"),
                           ("fullzip_gather", "fullzip_gather"),
                           ("ivf_topk", "ivf_topk_tensors"),
-                          ("bitunpack", "bitunpack")):
+                          ("bitunpack", "bitunpack"),
+                          ("miniblock_take", "miniblock_take")):
         setattr(ops, f"launch_{name}", lambda *a, **k: None)
 
         def counted(*a, _real=getattr(ops, wrapper), _name=name, **k):
