@@ -27,7 +27,7 @@ __all__ = [
     "Disk", "DiskView", "IOTracker", "IOStats", "DeviceModel", "Degradation",
     "TransientErrors", "Blackout", "CorrelatedFault",
     "NVME", "S3", "DRAM", "model_time", "merge_phase_extents",
-    "trace_stats",
+    "trace_stats", "gather_route", "GATHER_SLICE_MIN_BYTES",
 ]
 
 
@@ -44,7 +44,8 @@ class Disk:
             self._size = os.path.getsize(self._path)
         else:
             self._path = None
-            self._mem = np.asarray(data, dtype=np.uint8) if data is not None else np.zeros(0, np.uint8)
+            # contiguous, for read_gather's strided and sliced routes
+            self._mem = np.ascontiguousarray(data, dtype=np.uint8) if data is not None else np.zeros(0, np.uint8)
             self._size = len(self._mem)
 
     @staticmethod
@@ -118,14 +119,21 @@ class Disk:
         if hi > lo:
             self._mem[lo:hi] = 0
 
+    @property
+    def file_backed(self) -> bool:
+        return self._path is not None
+
     def read_gather(self, offsets, sizes) -> Tuple[np.ndarray, np.ndarray]:
-        """Vectorized multi-extent read: one gather for N spans.
+        """Multi-extent read: one call for N spans.
 
         Returns ``(data, out_offsets)`` where span ``k``'s bytes are
-        ``data[out_offsets[k]:out_offsets[k + 1]]``.  Bounds are checked for
-        every span; the in-memory path is a single fancy-index copy (no
-        per-span Python loop), which is what makes the batched ``take``
-        pipeline's chunk/index/span fetches cheap.
+        ``data[out_offsets[k]:out_offsets[k + 1]]``, a fresh array that never
+        aliases the backing store.  Bounds are checked for every span before
+        any copy.  :func:`gather_route` picks how the spans are copied from
+        their sizes alone: equal sizes as one 2-D take of a strided view
+        (one row a span), long spans one slice at a time into one buffer
+        sized up front, many tiny spans through one int64 index a byte.  A
+        file-backed disk reads span by span.
         """
         offsets = np.asarray(offsets, dtype=np.int64)
         sizes = np.asarray(sizes, dtype=np.int64)
@@ -142,11 +150,52 @@ class Disk:
         if self._path is not None:  # one read per span
             parts = [self.read(int(o), int(s)) for o, s in zip(offsets, sizes)]
             return np.concatenate(parts), out_offs
-        total = int(out_offs[-1])
+        route = gather_route(sizes)
+        if route == "strided":
+            s = int(sizes[0])
+            if s == 0:
+                return np.zeros(0, np.uint8), out_offs
+            # row o of this view is mem[o:o + s]; the fancy index copies
+            rows = np.lib.stride_tricks.as_strided(
+                self._mem[: self._size], shape=(self._size - s + 1, s),
+                strides=(1, 1), writeable=False)
+            return rows[offsets].reshape(-1), out_offs
+        if route == "sliced":
+            # join sizes its buffer once and copies each span into it
+            mem = memoryview(self._mem)
+            data = bytearray().join(
+                [mem[o : o + s] for o, s in zip(offsets.tolist(), sizes.tolist())])
+            return np.frombuffer(data, np.uint8), out_offs
         idx = np.repeat(offsets - out_offs[:-1], sizes) + np.arange(
-            total, dtype=np.int64
+            int(out_offs[-1]), dtype=np.int64
         )
         return self._mem[idx], out_offs
+
+
+# Mean span bytes from which an unequal-size gather copies span by span
+# instead of building one int64 index a byte: a slice copy costs a fixed
+# Python step a span, the index ~8 index bytes written and read a byte.
+# tools/gather_crossover.py on the host of an H100 machine: ~0.16 us a span
+# against ~2.4 ns a byte, so the two even at a mean of 64 B and the slices
+# faster from 96 B at 64, 256 and 4,096 spans a call.
+GATHER_SLICE_MIN_BYTES = 96
+
+
+def gather_route(sizes, file_backed: bool = False) -> str:
+    """How :meth:`Disk.read_gather` copies spans of ``sizes`` bytes:
+    ``"strided"`` (every size equal), ``"sliced"`` (a file-backed disk, or
+    at least :data:`GATHER_SLICE_MIN_BYTES` a span on average) or
+    ``"indexed"`` (many tiny spans of unequal sizes).  The one place the
+    route is decided, so the scheduler's per-route span counts are what
+    ran."""
+    sizes = np.asarray(sizes, dtype=np.int64)
+    if file_backed:
+        return "sliced"
+    if len(sizes) == 0 or sizes.min() == sizes.max():
+        return "strided"
+    if int(sizes.sum()) >= GATHER_SLICE_MIN_BYTES * len(sizes):
+        return "sliced"
+    return "indexed"
 
 
 class DiskView:
@@ -183,6 +232,10 @@ class DiskView:
                 f"{self._size}-byte view"
             )
         return self.disk.read(self.base + offset, size)
+
+    @property
+    def file_backed(self) -> bool:
+        return self.disk.file_backed
 
     def read_gather(self, offsets, sizes) -> Tuple[np.ndarray, np.ndarray]:
         offsets = np.asarray(offsets, dtype=np.int64)

@@ -46,6 +46,7 @@ from ..core.io_sim import (
     DeviceModel,
     Disk,
     IOStats,
+    gather_route,
     merge_phase_extents,
     trace_stats,
 )
@@ -435,7 +436,10 @@ class ReadBatch:
         """Submit one phase-grouped batch of spans in a single dispatch.
 
         Records one logical op per span (accounting identical to N
-        :meth:`read` calls) but serves all bytes with one vectorized gather.
+        :meth:`read` calls) but serves all bytes with one
+        :meth:`~repro_torch.core.io_sim.Disk.read_gather`, its spans counted
+        under the route that copied them (``store.gather_spans.strided``,
+        ``.sliced`` or ``.indexed``; see :func:`gather_route`).
         Returns ``(data, out_offsets)``: span ``k`` is
         ``data[out_offsets[k]:out_offsets[k + 1]]``.  This is the batched
         ``take`` pipeline's entry point — cross-row coalescing happens once
@@ -449,8 +453,12 @@ class ReadBatch:
         self.ops.extend(
             (o, s, phase) for o, s in zip(offsets.tolist(), sizes.tolist())
         )
-        with self.scheduler.tracer.step("store.gather", n_spans=len(sizes)):
-            return self.scheduler.store.disk.read_gather(offsets, sizes)
+        disk, tr = self.scheduler.store.disk, self.scheduler.tracer
+        route = gather_route(sizes, disk.file_backed)
+        with tr.step("store.gather", n_spans=len(sizes), route=route):
+            out = disk.read_gather(offsets, sizes)
+        tr.tally(f"store.gather_spans.{route}", len(sizes))
+        return out
 
     def note_useful(self, nbytes: int) -> None:
         self._useful += int(nbytes)

@@ -110,7 +110,12 @@ def test_take_records_each_step_and_counts_chunks(date_files):
                             for f in r.fragments)
     assert counts["miniblock.chunks"] == chunks
     assert counts["miniblock.rows_on_card"] == len(np.unique(rows))
-    assert set(counts) == {"miniblock.chunks", "miniblock.rows_on_card", "dataset.sys_us"}
+    # each chunk is one span of the store's gather, counted under its route
+    gathered = {k: v for k, v in counts.items() if k.startswith("store.gather_spans.")}
+    assert set(gathered) <= {"store.gather_spans.strided", "store.gather_spans.sliced"}
+    assert sum(gathered.values()) == chunks
+    assert set(counts) - set(gathered) == {"miniblock.chunks", "miniblock.rows_on_card",
+                                           "dataset.sys_us"}
     span = next(e for e in tr.events if e["name"] == "dataset.take:c")
     assert span["args"]["sys_us"] == counts["dataset.sys_us"] >= 0
     steps = [e for e in tr.events if e.get("cat") == "step"]
@@ -203,8 +208,11 @@ def test_without_steps_a_profiled_take_goes_to_the_recorder(date_files):
         assert totals[name][0] == frags, name
     counts = PROFILER_STEPS.metrics.counter_values()
     assert counts["miniblock.chunks"] == needed_chunks(r, rows)
-    # no copy on the CPU
-    assert set(counts) == {"miniblock.chunks", "miniblock.rows_on_card", "dataset.sys_us"}
+    # no copy on the CPU; each chunk one span of the store's gather
+    gathered = {k: v for k, v in counts.items() if k.startswith("store.gather_spans.")}
+    assert sum(gathered.values()) == counts["miniblock.chunks"]
+    assert set(counts) - set(gathered) == {"miniblock.chunks", "miniblock.rows_on_card",
+                                           "dataset.sys_us"}
     assert TAKE_STEPS <= {e.key for e in prof.key_averages()}
     assert r.tracer is NULL_TRACER and NULL_TRACER.events == []
     assert PROFILER_STEPS.events == []
