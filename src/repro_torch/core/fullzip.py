@@ -54,7 +54,6 @@ from .encodings_base import (
     reorder_leaf_rows,
 )
 from ..kernels import ops
-from ..obs.trace import NULL_TRACER
 from .rdlevels import (
     control_word_width,
     gather_le,
@@ -479,8 +478,7 @@ class FullZipReader(ColumnReader):
         m = self.meta
         if len(rows) == 0:
             return empty_leaf(self.proto)
-        tracer = getattr(io, "tracer", None)
-        tr = NULL_TRACER if tracer is None else tracer
+        tr = io.tracer
         with tr.step("fullzip.locate"):
             urows, inv = np.unique(rows, return_inverse=True)
         if urows[0] < 0 or urows[-1] >= m["n_rows"]:
@@ -497,16 +495,14 @@ class FullZipReader(ColumnReader):
             # the decoded result, never re-read, so amplification stays >= 1
             io.note_useful(stride * n_unique)
             if self.decode == "device":
-                return self._take_fixed_device(data, n_unique, stride, inv,
-                                               tracer=tracer)
+                return self._take_fixed_device(data, n_unique, stride, inv, io)
             with tr.step("fullzip.decode"):
                 rep, defs, vals = self._decode_fixed(data)
         else:
             if self.decode == "device":
                 # the rep-indexed path decodes variable-stride entries on the
                 # host frontier; the fused gather kernel needs fixed strides
-                ops.note_fallback("fullzip", "variable-stride",
-                                  getattr(io, "tracer", None),
+                ops.note_fallback("fullzip", "variable-stride", tr,
                                   n_rows=int(n_unique))
             R = m["R"]
             # one IOP per row covers both adjacent index entries (start & end)
@@ -528,23 +524,16 @@ class FullZipReader(ColumnReader):
         return reorder_leaf_rows(dec, inv)
 
     def _take_fixed_device(self, data: np.ndarray, n_unique: int, stride: int,
-                           inv: np.ndarray, tracer=None) -> ShreddedLeaf:
+                           inv: np.ndarray, io) -> ShreddedLeaf:
         """Fused gather route: one ``fullzip_gather`` launch fans the unique
         zipped rows out to request order on the device, then the
         request-order matrix is decoded strided — bit-identical to the host
         ``reorder_leaf_rows`` permutation (fixed-stride entries are rows)."""
-        tr = NULL_TRACER if tracer is None else tracer
+        tr = io.tracer
         zipped = np.ascontiguousarray(data[: n_unique * stride]).reshape(
             n_unique, stride)
-        index = inv.astype(np.int32)
-        with tr.step("device.h2d", bytes=zipped.nbytes + index.nbytes):
-            args = (ops.to_device(zipped, self.device),
-                    ops.to_device(index, self.device))
-        with tr.step("device.fullzip_gather"):
-            out = ops.fullzip_gather(*args)
-        with tr.step("device.d2h") as st:
-            gathered = ops.to_host(out)
-            st.set(bytes=gathered.nbytes)
+        (gathered,) = ops.round_trip("fullzip_gather", (zipped, inv.astype(np.int32)),
+                                     self.device, tr)
         with tr.step("fullzip.decode"):
             rep, defs, vals = self._decode_fixed(gathered.reshape(-1))
             return leaf_slice(self.proto, rep, defs, vals, len(inv))

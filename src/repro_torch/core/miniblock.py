@@ -33,7 +33,7 @@ entries.  The logical IOPS/byte trace is the same on every route.
 from __future__ import annotations
 
 import struct
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -51,7 +51,6 @@ from .encodings_base import (
     value_bytes,
 )
 from ..kernels import ops
-from ..obs.trace import NULL_TRACER
 from .rdlevels import level_bits, pack_levels, unpack_levels
 from .shred import ShreddedLeaf
 
@@ -161,10 +160,13 @@ def _parse_chunk(raw: np.ndarray) -> List[np.ndarray]:
     return bufs
 
 
-def _stack_words(bufs: List[np.ndarray]) -> np.ndarray:
-    """Packed streams -> one zero-padded uint32 word row each, with a word
-    of padding past the longest (the rows the kernels take)."""
-    rows = [ops.pack_words(b, pad_words=1) for b in bufs]
+def _stack_words(parsed: List[List[np.ndarray]], bi: Optional[int]) -> np.ndarray:
+    """Buffer ``bi`` of each parsed chunk -> one zero-padded uint32 word row
+    each, with a word of padding past the longest (the rows the kernels
+    take); an absent stream (``bi`` None) is a ``(C, 1)`` zero row each."""
+    if bi is None:
+        return np.zeros((len(parsed), 1), dtype=np.uint32)
+    rows = [ops.pack_words(bufs[bi], pad_words=1) for bufs in parsed]
     out = np.zeros((len(rows), max(len(r) for r in rows)), dtype=np.uint32)
     for j, r in enumerate(rows):
         out[j, : len(r)] = r
@@ -300,19 +302,18 @@ class MiniBlockReader(ColumnReader):
             raise ValueError(f"decode must be 'numpy'|'device', got {decode!r}")
         self.decode = decode
         self.device = device
+        # each stream's place among a chunk's buffers (None: absent): rep,
+        # def, the first value buffer
+        rep, dfn = leaf_proto.max_rep > 0, leaf_proto.max_def > 0
+        self._slots = (0 if rep else None, int(rep) if dfn else None, int(rep) + int(dfn))
 
     def _decode_chunk(self, ci: int, raw: np.ndarray):
         cm = self.meta["chunks"][ci]
         bufs = _parse_chunk(raw)
         k = cm["n_entries"]
-        bi = 0
-        rep = defs = None
-        if self.proto.max_rep > 0:
-            rep = unpack_levels(bufs[bi], k, self.proto.max_rep)
-            bi += 1
-        if self.proto.max_def > 0:
-            defs = unpack_levels(bufs[bi], k, self.proto.max_def)
-            bi += 1
+        ri, di, bi = self._slots
+        rep = None if ri is None else unpack_levels(bufs[ri], k, self.proto.max_rep)
+        defs = None if di is None else unpack_levels(bufs[di], k, self.proto.max_def)
         vals = _decode_chunk_values(
             self.proto.leaf_type,
             bufs[bi:],
@@ -344,8 +345,7 @@ class MiniBlockReader(ColumnReader):
         rows = np.asarray(rows, dtype=np.int64)
         if len(rows) == 0:
             return empty_leaf(self.proto)
-        tracer = getattr(io, "tracer", None)
-        tr = NULL_TRACER if tracer is None else tracer
+        tr = io.tracer
         with tr.step("miniblock.locate"):
             urows, inv = np.unique(rows, return_inverse=True)
             if urows[0] < 0 or urows[-1] >= self.meta["n_rows"]:
@@ -363,17 +363,16 @@ class MiniBlockReader(ColumnReader):
             sizes = np.array([self.meta["chunks"][c]["words"] * 8 for c in needed],
                              dtype=np.int64)
 
-            kp = self._take_kernel_params(needed)
+            plan = self._take_kernel_params(needed)
 
         # IO: every needed chunk exactly once, one phase-0 batch dispatch
         data, doffs = io.read_many(self.base + offs[needed], sizes, phase=0)
         raws = [data[doffs[i]: doffs[i + 1]] for i in range(len(needed))]
-        if kp is not None:
-            return self._take_on_device(needed, raws, kp, c0, rows_before, urows, inv,
-                                        io, tracer)
+        if plan is not None:
+            return self._take_on_device(needed, raws, plan, c0, rows_before, urows, inv, io)
 
         # decode each chunk exactly once (numpy or batched on the device)
-        decoded = self._decode_chunks(needed, raws, tracer=tracer)
+        decoded = self._decode_chunks(needed, raws, io)
         with tr.step("miniblock.select"):
             tr.tally("miniblock.rows_on_host", len(urows))
             return self._select(decoded, needed, rows_before, urows, inv, io)
@@ -419,81 +418,75 @@ class MiniBlockReader(ColumnReader):
         return reorder_leaf_rows(dec, inv)  # fan out to request order
 
     def _take_kernel_params(self, needed) -> Optional[List[tuple]]:
-        """Each needed chunk's ``(bits, ref)`` when a take selects its rows
-        on the device, else None.  It does under ``decode='device'`` for a
-        column without repetition levels (each row is one entry, at ``row -
-        rows_before[c0]`` of its chunk) that the kernels cover, when every
-        needed chunk's value codec is within their int32 extract.  Every
-        other take decodes its chunks whole and selects on the host, counting
-        its fallbacks as before."""
+        """Each needed chunk's ``(n_entries, bits, ref)`` when a take selects
+        its rows on the device, else None.  It does under ``decode='device'``
+        for a column without repetition levels (each row is one entry, at
+        ``row - rows_before[c0]`` of its chunk) when the kernels cover every
+        needed chunk.  Every other take decodes its chunks whole and selects
+        on the host, counting its fallbacks there."""
         if (self.decode != "device" or self.proto.max_rep > 0
-                or len(needed) > ops.MAX_TAKE_CHUNKS
-                or self._pallas_ineligible_reason() is not None):
+                or len(needed) > ops.MAX_TAKE_CHUNKS):
             return None
-        vbi = 1 if level_bits(self.proto.max_def) else 0
-        kp = [self._chunk_kernel_params(self.meta["chunks"][c]["bufmeta"][vbi])
-              for c in needed]
-        return None if any(p is None for p in kp) else kp
+        plan, _ = self._kernel_plan(needed)
+        return None if any(p is None for p in plan) else plan
 
-    def _take_on_device(self, needed, raws, kp, c0, rows_before, urows, inv, io,
-                        tracer) -> ShreddedLeaf:
+    def _take_on_device(self, needed, raws, plan, c0, rows_before, urows, inv,
+                        io) -> ShreddedLeaf:
         """The unique rows ``urows`` selected on the device: one
         ``miniblock_take`` launch decodes each row's entry alone, given as its
         chunk's place among ``needed`` and its place in that chunk; nulls
         are dropped on the host, and the rows fanned out to request order."""
-        tr = NULL_TRACER if tracer is None else tracer
+        tr = io.tracer
         tr.tally("miniblock.chunks", len(raws))
         lt = self.proto.leaf_type
-        fsl = isinstance(lt, T.FixedSizeList)
-        vpe = lt.size if fsl else 1
-        dt = np.dtype(lt.child.dtype if fsl else lt.dtype)
+        vpe = lt.size if isinstance(lt, T.FixedSizeList) else 1
         def_bits = level_bits(self.proto.max_def)
         with tr.step("miniblock.parse"):
             parsed = [_parse_chunk(raw) for raw in raws]
         with tr.step("miniblock.pack"):
-            params = np.array([(self.meta["chunks"][c]["n_entries"], *p)
-                               for c, p in zip(needed, kp)], dtype=np.int32)
-            def_words = (_stack_words([b[0] for b in parsed]) if def_bits
-                         else np.zeros((len(raws), 1), dtype=np.uint32))
-            val_words = _stack_words([b[1 if def_bits else 0] for b in parsed])
+            params = np.array(plan, dtype=np.int32)
+            def_words, val_words = (_stack_words(parsed, bi) for bi in self._slots[1:])
 
         with tr.step("miniblock.select"):
             tr.tally("miniblock.rows_on_card", len(urows))
             pairs = (np.searchsorted(needed, c0) * MAX_CHUNK_VALUES
                      + (urows - rows_before[c0])).astype(np.int32)
-            host = (def_words, val_words, params, pairs)
-            with tr.step("device.h2d", bytes=sum(a.nbytes for a in host)):
-                args = [ops.to_device(a, self.device) for a in host]
-            with tr.step("device.miniblock_take"):
-                out = ops.miniblock_take(*args, def_bits=def_bits, vpe=vpe, fill=0)
-            with tr.step("device.d2h") as st:
-                got = ops.to_host(out)
-                st.set(bytes=got.nbytes)
+            (got,) = ops.round_trip(
+                "miniblock_take", (def_words, val_words, params, pairs), self.device, tr,
+                def_bits=def_bits, vpe=vpe, fill=0)
             defs = got[:, vpe].astype(np.uint8) if def_bits else None
-            dense = got[defs == 0, :vpe] if def_bits else got
-            dense = dense.astype(dt)
-            ones = np.ones(len(dense), bool)
-            vals = (A.FixedSizeListArray(lt.with_nullable(False), ones, dense) if fsl
-                    else A.PrimitiveArray(lt.with_nullable(False), ones, dense[:, 0]))
-            dec = leaf_slice(self.proto, None, defs, vals, len(urows))
+            dec = leaf_slice(self.proto, None, defs, self._kernel_values(got[:, :vpe], defs),
+                             len(urows))
             # useful bytes over unique rows, as _select counts them
             io.note_useful(value_bytes(dec.values))
             return reorder_leaf_rows(dec, inv)
 
+    def _kernel_values(self, dense: np.ndarray, defs: Optional[np.ndarray]) -> A.Array:
+        """Dense kernel output, ``vpe`` int32 values an entry, as the leaf's
+        values array with the null entries (``defs`` nonzero) dropped."""
+        lt = self.proto.leaf_type
+        fsl = isinstance(lt, T.FixedSizeList)
+        if defs is not None:
+            dense = dense[defs == 0]
+        dense = dense.astype(lt.child.dtype if fsl else lt.dtype)
+        ones = np.ones(len(dense), bool)
+        return (A.FixedSizeListArray(lt.with_nullable(False), ones, dense) if fsl
+                else A.PrimitiveArray(lt.with_nullable(False), ones, dense[:, 0]))
+
     # ------------------------------------------------------------------
-    def _decode_chunks(self, chunk_ids, raws, tracer=None) -> List[tuple]:
+    def _decode_chunks(self, chunk_ids, raws, io) -> List[tuple]:
         """Decode chunks ``chunk_ids`` (raw payloads in ``raws``) exactly
         once each.  Under ``decode='device'``, integer chunks (bit-packed or
         FoR byte-packed values; flat, nested or fixed-size-list; any
         rep/def level width) are batch-decoded by one ``miniblock_decode``
         launch; the rest fall back to the numpy path per chunk, each
-        fallback counted under its reason (``ops.fallbacks``, and ``tracer``,
-        the IO path's, via the batch handle).  Under the tracer's steps the
-        chunks are counted (``miniblock.chunks``)."""
-        tr = NULL_TRACER if tracer is None else tracer
+        fallback counted under its reason (``ops.fallbacks``, and the IO
+        path's tracer).  Under the tracer's steps the chunks are counted
+        (``miniblock.chunks``)."""
+        tr = io.tracer
         tr.tally("miniblock.chunks", len(raws))
         if self.decode == "device":
-            routed = self._decode_chunks_device(chunk_ids, raws, tracer)
+            routed = self._decode_chunks_device(chunk_ids, raws, io)
             if routed is not None:
                 return routed
         with tr.step("miniblock.decode"):
@@ -506,7 +499,7 @@ class MiniBlockReader(ColumnReader):
     def _pallas_ineligible_reason(self) -> Optional[str]:
         """Column-level kernel coverage: integer primitives and fixed-size
         lists of integers, with any (column-constant) rep/def level widths;
-        per-chunk value codecs are checked in :meth:`_chunk_kernel_params`.
+        per-chunk value codecs are checked in :meth:`_chunk_coverage`.
         Returns the fallback reason (None = eligible): ``variable-width-leaf``
         (utf8/binary/list offsets), ``float-values``, ``non-integer-values``,
         ``tile-over-vmem``."""
@@ -528,140 +521,88 @@ class MiniBlockReader(ColumnReader):
         return None
 
     @staticmethod
-    def _chunk_kernel_params(bufmeta: Dict) -> Optional[tuple]:
-        """Per-chunk value-codec eligibility: ``(bits, ref)`` when the
-        kernel's int32 extract covers this chunk, else None.  ``bitpack`` is
-        a dense bit stream (ref 0); ``bytepack`` is byte-aligned FoR whose
-        reference must keep the int32 arithmetic exact."""
+    def _chunk_coverage(bufmeta: Dict) -> tuple:
+        """Per-chunk value-codec coverage: ``((bits, ref), None)`` when the
+        kernels' int32 extract reads this chunk, else ``(None, reason)``.
+        ``bitpack`` is a dense bit stream (ref 0); ``bytepack`` is
+        byte-aligned FoR (a float payload stored as raw bytes has no ref)
+        whose reference must keep the int32 arithmetic exact."""
         codec = bufmeta.get("codec")
         if codec == "bitpack":
-            return (bufmeta["bits"], 0) if bufmeta["bits"] <= 31 else None
-        if codec == "bytepack":
+            bits, ref = bufmeta["bits"], 0
+        elif codec == "bytepack":
             ref = bufmeta.get("ref")
-            if ref is None:  # float payload stored as raw bytes
-                return None
+            if ref is None:
+                return None, "float-bytes"
             bits = 8 * bufmeta["width"]
-            if bits > 31:
-                return None
-            if ref < -(1 << 31) or ref + (1 << bits) - 1 > (1 << 31) - 1:
-                return None
-            return (bits, ref)
-        return None
+        else:
+            return None, f"opaque-codec:{codec}"
+        if bits > 31:
+            return None, ">31-bit"
+        if ref < -(1 << 31) or ref + (1 << bits) - 1 > (1 << 31) - 1:
+            return None, "ref-overflow"
+        return (bits, ref), None
 
-    @staticmethod
-    def _chunk_fallback_reason(bufmeta: Dict) -> str:
-        """Why :meth:`_chunk_kernel_params` rejected this chunk's value
-        codec (only called when it did)."""
-        codec = bufmeta.get("codec")
-        if codec == "bitpack":
-            return ">31-bit"
-        if codec == "bytepack":
-            if bufmeta.get("ref") is None:
-                return "float-bytes"
-            if 8 * bufmeta["width"] > 31:
-                return ">31-bit"
-            return "ref-overflow"
-        return f"opaque-codec:{codec}"
+    def _kernel_plan(self, chunk_ids) -> Tuple[List[Optional[tuple]], Dict[str, int]]:
+        """The kernels' coverage of chunks ``chunk_ids``, from metadata
+        alone: each chunk's ``(n_entries, bits, ref)`` (None where they
+        cannot read it), and each fallback reason with its count of chunks.
+        A column out of their reach is every chunk's reason."""
+        reason = self._pallas_ineligible_reason()
+        if reason is not None:
+            return [None] * len(chunk_ids), {reason: len(chunk_ids)}
+        plan: List[Optional[tuple]] = []
+        reasons: Dict[str, int] = {}
+        for c in chunk_ids:
+            cm = self.meta["chunks"][c]
+            params, reason = self._chunk_coverage(cm["bufmeta"][self._slots[2]])
+            plan.append(None if params is None else (cm["n_entries"], *params))
+            if reason is not None:
+                reasons[reason] = reasons.get(reason, 0) + 1
+        return plan, reasons
 
-    def _decode_chunks_device(self, chunk_ids, raws,
-                              tracer=None) -> Optional[List[tuple]]:
-        tr = NULL_TRACER if tracer is None else tracer
+    def _decode_chunks_device(self, chunk_ids, raws, io) -> Optional[List[tuple]]:
+        tr = io.tracer
         with tr.step("miniblock.parse"):
-            col_reason = self._pallas_ineligible_reason()
-            if col_reason is not None:
-                ops.note_fallback("miniblock", col_reason, tracer,
-                                  n_chunks=len(chunk_ids))
-                return None
-            lt = self.proto.leaf_type
-            fsl = isinstance(lt, T.FixedSizeList)
-            vpe = lt.size if fsl else 1
-            dt = np.dtype(lt.child.dtype if fsl else lt.dtype)
-            rep_bits = level_bits(self.proto.max_rep)
-            def_bits = level_bits(self.proto.max_def)
-            vbi = (1 if rep_bits else 0) + (1 if def_bits else 0)
-            metas = [self.meta["chunks"][c] for c in chunk_ids]
-            # metadata-only eligibility check first: chunks are parsed at most
-            # once, and an all-ineligible batch costs no parse work at all
-            kp = [self._chunk_kernel_params(cm["bufmeta"][vbi]) for cm in metas]
-            reasons: Dict[str, int] = {}
-            for cm, p in zip(metas, kp):
-                if p is None:
-                    r = self._chunk_fallback_reason(cm["bufmeta"][vbi])
-                    reasons[r] = reasons.get(r, 0) + 1
+            # metadata-only coverage first: chunks are parsed at most once,
+            # and an all-fallback batch costs no parse work at all
+            plan, reasons = self._kernel_plan(chunk_ids)
             for r in sorted(reasons):  # one count per reason per batch
-                ops.note_fallback("miniblock", r, tracer, n_chunks=reasons[r])
-            if not any(p is not None for p in kp):
+                ops.note_fallback("miniblock", r, tr, n_chunks=reasons[r])
+            sel = [i for i, p in enumerate(plan) if p is not None]
+            if not sel:
                 return None
-            sel = [i for i, p in enumerate(kp) if p is not None]
-            parsed = {i: _parse_chunk(raws[i]) for i in sel}
+            parsed = [_parse_chunk(raws[i]) for i in sel]
 
+        lt = self.proto.leaf_type
+        vpe = lt.size if isinstance(lt, T.FixedSizeList) else 1
+        rep_bits = level_bits(self.proto.max_rep)
+        def_bits = level_bits(self.proto.max_def)
         with tr.step("miniblock.pack"):
-            tile = -(-max(metas[i]["n_entries"] for i in sel) // 128) * 128
-            params = np.zeros((len(sel), 3), dtype=np.int32)
-            streams = []  # (rep_words, def_words, val_words) ragged rows
-            for j, i in enumerate(sel):
-                cm, bufs = metas[i], parsed[i]
-                rw = ops.pack_words(bufs[0], pad_words=1) if rep_bits else None
-                dw = (ops.pack_words(bufs[1 if rep_bits else 0], pad_words=1)
-                      if def_bits else None)
-                vw = ops.pack_words(bufs[vbi], pad_words=1)
-                streams.append((rw, dw, vw))
-                params[j] = (cm["n_entries"], kp[i][0], kp[i][1])
-
-            def stack(rows, active):
-                if not active:
-                    return np.zeros((len(rows), 1), dtype=np.uint32)
-                width = max(len(r) for r in rows)
-                out = np.zeros((len(rows), width), dtype=np.uint32)
-                for j, r in enumerate(rows):
-                    out[j, : len(r)] = r
-                return out
-
-            host = (stack([s[0] for s in streams], rep_bits),
-                    stack([s[1] for s in streams], def_bits),
-                    stack([s[2] for s in streams], True), params)
-
-        dev = self.device
-        with tr.step("device.h2d", bytes=sum(a.nbytes for a in host)):
-            args = [ops.to_device(a, dev) for a in host]
-        with tr.step("device.miniblock_decode"):
-            outs = ops.miniblock_decode(
-                *args, rep_bits=rep_bits, def_bits=def_bits, vpe=vpe,
-                tile_entries=tile, fill=0)
-        with tr.step("device.d2h") as st:
-            rep_np, def_np, vals_np = (ops.to_host(a) for a in outs)
-            st.set(bytes=rep_np.nbytes + def_np.nbytes + vals_np.nbytes)
+            params = np.array([plan[i] for i in sel], dtype=np.int32)
+            tile = -(-int(params[:, 0].max()) // 128) * 128
+            host = (*(_stack_words(parsed, bi) for bi in self._slots), params)
+        rep_np, def_np, vals_np = ops.round_trip(
+            "miniblock_decode", host, self.device, tr, rep_bits=rep_bits,
+            def_bits=def_bits, vpe=vpe, tile_entries=tile, fill=0)
 
         out: List[tuple] = [None] * len(chunk_ids)
         with tr.step("miniblock.unpack"):
             for j, i in enumerate(sel):
-                k = metas[i]["n_entries"]
+                k = plan[i][0]
                 rep = rep_np[j, :k].astype(np.uint8) if rep_bits else None
                 defs = def_np[j, :k].astype(np.uint8) if def_bits else None
-                valid = (defs == 0) if defs is not None else np.ones(k, bool)
-                n_valid = int(valid.sum())
-                dense = vals_np[j, : k * vpe]
-                if fsl:
-                    vals = A.FixedSizeListArray(
-                        lt.with_nullable(False), np.ones(n_valid, bool),
-                        dense.reshape(k, vpe)[valid].astype(dt),
-                    )
-                else:
-                    vals = A.PrimitiveArray(
-                        lt.with_nullable(False), np.ones(n_valid, bool),
-                        dense[:k][valid].astype(dt),
-                    )
+                vals = self._kernel_values(vals_np[j, : k * vpe].reshape(k, vpe), defs)
                 out[i] = (rep, defs, vals)
-        if len(sel) < len(kp):
+        if len(sel) < len(plan):
             with tr.step("miniblock.decode"):
-                for i, p in enumerate(kp):
+                for i, p in enumerate(plan):
                     if p is None:
                         out[i] = self._decode_chunk(chunk_ids[i], raws[i])
         return out
 
     def scan(self, io, io_chunk: int = 8 << 20) -> ShreddedLeaf:
-        tracer = getattr(io, "tracer", None)
-        tr = NULL_TRACER if tracer is None else tracer
+        tr = io.tracer
         offs = self.meta["chunk_offsets"]
         total = (offs[-1] + self.meta["chunks"][-1]["words"] * 8) if offs else 0
         raw_parts = []
@@ -674,7 +615,7 @@ class MiniBlockReader(ColumnReader):
                 raw[offs[ci]: offs[ci] + self.meta["chunks"][ci]["words"] * 8]
                 for ci in range(n_chunks)
             ]
-        decoded = self._decode_chunks(np.arange(n_chunks), raws, tracer=tracer)
+        decoded = self._decode_chunks(np.arange(n_chunks), raws, io)
         with tr.step("miniblock.concat"):
             reps = [d[0] for d in decoded]
             dfs = [d[1] for d in decoded]
@@ -687,8 +628,3 @@ class MiniBlockReader(ColumnReader):
                 values = empty_values(self.proto.leaf_type)
             return leaf_slice(self.proto, rep, defs, values, self.meta["n_rows"])
 
-
-# retained as the historical entry points; the implementations are the shared
-# helpers in encodings_base
-_reorder_rows = reorder_leaf_rows
-_empty_values = empty_values

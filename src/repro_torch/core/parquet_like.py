@@ -27,12 +27,13 @@ from .encodings_base import (
     ColumnReader,
     EncodedColumn,
     empty_leaf,
+    empty_values,
     leaf_slice,
     pad_to,
     reorder_leaf_rows,
     value_bytes,
 )
-from .miniblock import _decode_chunk_values, _encode_chunk_values, _empty_values
+from .miniblock import _decode_chunk_values, _encode_chunk_values
 from .rdlevels import pack_levels, unpack_levels
 from .shred import ShreddedLeaf
 
@@ -383,5 +384,5 @@ class ParquetReader(ColumnReader):
                 buf_start = p + len(part)
         rep = np.concatenate(reps) if reps and reps[0] is not None else None
         defs = np.concatenate(dfs) if dfs and dfs[0] is not None else None
-        values = A.concat(vals) if vals else _empty_values(self.proto.leaf_type)
+        values = A.concat(vals) if vals else empty_values(self.proto.leaf_type)
         return leaf_slice(self.proto, rep, defs, values, self.meta["n_rows"])

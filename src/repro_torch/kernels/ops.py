@@ -47,6 +47,7 @@ __all__ = [
     "launch_ivf_topk",
     "pack_words",
     "resolve_device",
+    "round_trip",
     "to_device",
     "to_host",
     "note_fallback",
@@ -150,6 +151,25 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     if t.is_cuda:
         _copied("d2h", t.nbytes)
     return t.cpu().numpy()
+
+
+def round_trip(kernel: str, host, device: torch.device, tracer, **kw):
+    """Host arrays ``host`` through the wrapper named ``kernel`` on
+    ``device`` and back: the one place a reader's arrays cross to the card.
+    Each array goes over by :func:`to_device` under the step ``device.h2d``
+    (``bytes``: their sum), the wrapper runs with ``**kw`` under
+    ``device.<kernel>``, and each output comes back by :func:`to_host` under
+    ``device.d2h`` (``bytes``: their sum).  Returns the outputs as a tuple
+    of numpy arrays.  The three functions are looked up in this module at
+    call time, so a caller that replaces one here sees every call."""
+    with tracer.step("device.h2d", bytes=sum(a.nbytes for a in host)):
+        args = [to_device(a, device) for a in host]
+    with tracer.step(f"device.{kernel}"):
+        out = globals()[kernel](*args, **kw)
+    with tracer.step("device.d2h") as st:
+        got = tuple(to_host(t) for t in (out if isinstance(out, tuple) else (out,)))
+        st.set(bytes=sum(a.nbytes for a in got))
+    return got
 
 
 def _copied(way: str, nbytes: int) -> None:

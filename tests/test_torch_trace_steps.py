@@ -171,6 +171,52 @@ def test_vector_take_records_its_steps(vector_files):
     assert "miniblock.chunks" not in tr.metrics.counter_values()
 
 
+@pytest.mark.parametrize("mix,kernel,ins,outs", [
+    ("date take", "miniblock_take", 4, 1),
+    ("date scan", "miniblock_decode", 4, 3),
+    ("vector take", "fullzip_gather", 2, 1)])
+def test_wrappers_in_ops_see_every_round_trip(date_files, vector_files, monkeypatch,
+                                              mix, kernel, ins, outs):
+    """The copies and the launch of a fragment's round trip are found in
+    ``ops`` at call time: wrapped there by module attribute, as the
+    benchmark's spans wrap them, they see each array that crosses, and each
+    ``device.h2d`` / ``device.d2h`` step's bytes are the summed bytes of the
+    arrays that crossed in it."""
+    trips, pending = [], []  # per launch: (bytes of each array in, of each out)
+
+    def wrapped(name, real):
+        def call(*args, **kw):
+            got = real(*args, **kw)
+            if name == "to_device":
+                pending.append(args[0].nbytes)
+            elif name == "to_host":
+                trips[-1][1].append(got.nbytes)
+            else:
+                trips.append((pending[:], []))
+                pending.clear()
+            return got
+        return call
+
+    for name in ("to_device", "to_host", kernel):
+        monkeypatch.setattr(ops, name, wrapped(name, getattr(ops, name)))
+    files, n = (vector_files, N_VECTORS) if mix == "vector take" else (date_files, N_ROWS)
+    tr = Tracer(steps=True)
+    r = DatasetReader(files, device="cpu", tracer=tr)
+    if mix == "date scan":
+        r.scan("c")
+        frags = N_FRAGMENTS
+    else:
+        rows = rows_of(n)
+        r.take("c", rows)
+        frags = len(np.unique(np.searchsorted(r.manifest.row_starts, rows, side="right")))
+    assert frags > 1 and not pending
+    assert [(len(i), len(o)) for i, o in trips] == [(ins, outs)] * frags
+    steps = [e for e in tr.events if e.get("cat") == "step"]
+    for way, side in (("device.h2d", 0), ("device.d2h", 1)):
+        assert [e["args"]["bytes"] for e in steps if e["name"] == way] == \
+            [sum(t[side]) for t in trips], way
+
+
 def test_copies_count_nothing_on_the_cpu(date_files):
     before = dict(ops.copies)
     DatasetReader(date_files, device="cpu").take("c", rows_of(N_ROWS))
