@@ -160,16 +160,45 @@ def _parse_chunk(raw: np.ndarray) -> List[np.ndarray]:
     return bufs
 
 
-def _stack_words(parsed: List[List[np.ndarray]], bi: Optional[int]) -> np.ndarray:
-    """Buffer ``bi`` of each parsed chunk -> one zero-padded uint32 word row
-    each, with a word of padding past the longest (the rows the kernels
-    take); an absent stream (``bi`` None) is a ``(C, 1)`` zero row each."""
+def _chunk_spans(data: np.ndarray, starts: np.ndarray,
+                 n_slots: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Where buffers ``0 .. n_slots - 1`` of each chunk lie in ``data``,
+    read from every chunk's header at once: the chunks begin at byte
+    ``starts`` of ``data``; returns each buffer's byte start in ``data`` and
+    its size, both ``(C, n_slots)`` int64.  The rule is
+    :func:`_parse_chunk`'s: the first buffer at
+    ``(2 + 2 * n_buffers + 7) & ~7`` of its chunk, each next one at the
+    previous end rounded up to 8.  A chunk with fewer than ``n_slots``
+    buffers raises ``ValueError``."""
+    starts = np.asarray(starts, dtype=np.int64)
+
+    def u16(at):
+        return data[at].astype(np.int64) | (data[at + 1].astype(np.int64) << 8)
+
+    nb = u16(starts)
+    if (nb < n_slots).any():
+        raise ValueError(f"mini-block chunk holds fewer than {n_slots} buffers")
+    sizes = u16(starts[:, None] + 2 + 2 * np.arange(n_slots))
+    padded = (sizes + 7) & ~7
+    first = starts + ((2 + 2 * nb + 7) & ~7)
+    return first[:, None] + np.cumsum(padded, axis=1) - padded, sizes
+
+
+def _stack_words(data: np.ndarray, spans: Tuple[np.ndarray, np.ndarray],
+                 bi: Optional[int]) -> np.ndarray:
+    """Buffer ``bi`` of each chunk (``spans``, from :func:`_chunk_spans`)
+    copied from ``data`` into one zero-padded uint32 word row each, with a
+    word of padding past the longest (the rows the kernels take: each row
+    is ``ops.pack_words(buffer, pad_words=1)`` zero-extended); an absent
+    stream (``bi`` None) is a ``(C, 1)`` zero row each."""
+    pos, sizes = spans
     if bi is None:
-        return np.zeros((len(parsed), 1), dtype=np.uint32)
-    rows = [ops.pack_words(bufs[bi], pad_words=1) for bufs in parsed]
-    out = np.zeros((len(rows), max(len(r) for r in rows)), dtype=np.uint32)
-    for j, r in enumerate(rows):
-        out[j, : len(r)] = r
+        return np.zeros((len(pos), 1), dtype=np.uint32)
+    pos, sizes = pos[:, bi].tolist(), sizes[:, bi]
+    out = np.zeros((len(pos), -(-int(sizes.max()) // 4) + 1), dtype=np.uint32)
+    rows = out.view(np.uint8)
+    for j, (p, n) in enumerate(zip(pos, sizes.tolist())):
+        rows[j, :n] = data[p: p + n]
     return out
 
 
@@ -367,12 +396,12 @@ class MiniBlockReader(ColumnReader):
 
         # IO: every needed chunk exactly once, one phase-0 batch dispatch
         data, doffs = io.read_many(self.base + offs[needed], sizes, phase=0)
-        raws = [data[doffs[i]: doffs[i + 1]] for i in range(len(needed))]
         if plan is not None:
-            return self._take_on_device(needed, raws, plan, c0, rows_before, urows, inv, io)
+            return self._take_on_device(needed, data, doffs, plan, c0, rows_before, urows,
+                                        inv, io)
 
         # decode each chunk exactly once (numpy or batched on the device)
-        decoded = self._decode_chunks(needed, raws, io)
+        decoded = self._decode_chunks(needed, data, doffs, io)
         with tr.step("miniblock.select"):
             tr.tally("miniblock.rows_on_host", len(urows))
             return self._select(decoded, needed, rows_before, urows, inv, io)
@@ -430,22 +459,24 @@ class MiniBlockReader(ColumnReader):
         plan, _ = self._kernel_plan(needed)
         return None if any(p is None for p in plan) else plan
 
-    def _take_on_device(self, needed, raws, plan, c0, rows_before, urows, inv,
+    def _take_on_device(self, needed, data, bounds, plan, c0, rows_before, urows, inv,
                         io) -> ShreddedLeaf:
         """The unique rows ``urows`` selected on the device: one
         ``miniblock_take`` launch decodes each row's entry alone, given as its
         chunk's place among ``needed`` and its place in that chunk; nulls
-        are dropped on the host, and the rows fanned out to request order."""
+        are dropped on the host, and the rows fanned out to request order.
+        Chunk ``i`` of ``needed`` is ``data[bounds[i]:bounds[i + 1]]``."""
         tr = io.tracer
-        tr.tally("miniblock.chunks", len(raws))
+        tr.tally("miniblock.chunks", len(needed))
+        tr.tally("miniblock.chunks_staged", len(needed))
         lt = self.proto.leaf_type
         vpe = lt.size if isinstance(lt, T.FixedSizeList) else 1
         def_bits = level_bits(self.proto.max_def)
         with tr.step("miniblock.parse"):
-            parsed = [_parse_chunk(raw) for raw in raws]
+            spans = _chunk_spans(data, bounds[:-1], self._slots[2] + 1)
         with tr.step("miniblock.pack"):
             params = np.array(plan, dtype=np.int32)
-            def_words, val_words = (_stack_words(parsed, bi) for bi in self._slots[1:])
+            def_words, val_words = (_stack_words(data, spans, bi) for bi in self._slots[1:])
 
         with tr.step("miniblock.select"):
             tr.tally("miniblock.rows_on_card", len(urows))
@@ -474,23 +505,25 @@ class MiniBlockReader(ColumnReader):
                 else A.PrimitiveArray(lt.with_nullable(False), ones, dense[:, 0]))
 
     # ------------------------------------------------------------------
-    def _decode_chunks(self, chunk_ids, raws, io) -> List[tuple]:
-        """Decode chunks ``chunk_ids`` (raw payloads in ``raws``) exactly
-        once each.  Under ``decode='device'``, integer chunks (bit-packed or
-        FoR byte-packed values; flat, nested or fixed-size-list; any
-        rep/def level width) are batch-decoded by one ``miniblock_decode``
-        launch; the rest fall back to the numpy path per chunk, each
-        fallback counted under its reason (``ops.fallbacks``, and the IO
-        path's tracer).  Under the tracer's steps the chunks are counted
-        (``miniblock.chunks``)."""
+    def _decode_chunks(self, chunk_ids, data, bounds, io) -> List[tuple]:
+        """Decode chunks ``chunk_ids`` (chunk ``i`` is
+        ``data[bounds[i]:bounds[i + 1]]``) exactly once each.  Under
+        ``decode='device'``, integer chunks (bit-packed or FoR byte-packed
+        values; flat, nested or fixed-size-list; any rep/def level width) are
+        batch-decoded by one ``miniblock_decode`` launch; the rest fall back
+        to the numpy path per chunk, each fallback counted under its reason
+        (``ops.fallbacks``, and the IO path's tracer).  Under the tracer's
+        steps the chunks are counted (``miniblock.chunks``), and so are those
+        whose word rows the device route staged (``miniblock.chunks_staged``)."""
         tr = io.tracer
-        tr.tally("miniblock.chunks", len(raws))
+        tr.tally("miniblock.chunks", len(chunk_ids))
         if self.decode == "device":
-            routed = self._decode_chunks_device(chunk_ids, raws, io)
+            routed = self._decode_chunks_device(chunk_ids, data, bounds, io)
             if routed is not None:
                 return routed
         with tr.step("miniblock.decode"):
-            return [self._decode_chunk(c, raw) for c, raw in zip(chunk_ids, raws)]
+            return [self._decode_chunk(c, data[bounds[i]: bounds[i + 1]])
+                    for i, c in enumerate(chunk_ids)]
 
     # The eligibility rules and fallback slugs keep the JAX package's names
     # (its Pallas kernel's), so the same chunks reach the kernel and the
@@ -561,18 +594,19 @@ class MiniBlockReader(ColumnReader):
                 reasons[reason] = reasons.get(reason, 0) + 1
         return plan, reasons
 
-    def _decode_chunks_device(self, chunk_ids, raws, io) -> Optional[List[tuple]]:
+    def _decode_chunks_device(self, chunk_ids, data, bounds, io) -> Optional[List[tuple]]:
         tr = io.tracer
         with tr.step("miniblock.parse"):
-            # metadata-only coverage first: chunks are parsed at most once,
-            # and an all-fallback batch costs no parse work at all
+            # metadata-only coverage first: only covered chunks' headers are
+            # read, and an all-fallback batch costs no parse work at all
             plan, reasons = self._kernel_plan(chunk_ids)
             for r in sorted(reasons):  # one count per reason per batch
                 ops.note_fallback("miniblock", r, tr, n_chunks=reasons[r])
             sel = [i for i, p in enumerate(plan) if p is not None]
+            tr.tally("miniblock.chunks_staged", len(sel))
             if not sel:
                 return None
-            parsed = [_parse_chunk(raws[i]) for i in sel]
+            spans = _chunk_spans(data, np.asarray(bounds)[sel], self._slots[2] + 1)
 
         lt = self.proto.leaf_type
         vpe = lt.size if isinstance(lt, T.FixedSizeList) else 1
@@ -581,7 +615,7 @@ class MiniBlockReader(ColumnReader):
         with tr.step("miniblock.pack"):
             params = np.array([plan[i] for i in sel], dtype=np.int32)
             tile = -(-int(params[:, 0].max()) // 128) * 128
-            host = (*(_stack_words(parsed, bi) for bi in self._slots), params)
+            host = (*(_stack_words(data, spans, bi) for bi in self._slots), params)
         rep_np, def_np, vals_np = ops.round_trip(
             "miniblock_decode", host, self.device, tr, rep_bits=rep_bits,
             def_bits=def_bits, vpe=vpe, tile_entries=tile, fill=0)
@@ -598,7 +632,8 @@ class MiniBlockReader(ColumnReader):
             with tr.step("miniblock.decode"):
                 for i, p in enumerate(plan):
                     if p is None:
-                        out[i] = self._decode_chunk(chunk_ids[i], raws[i])
+                        out[i] = self._decode_chunk(chunk_ids[i],
+                                                    data[bounds[i]: bounds[i + 1]])
         return out
 
     def scan(self, io, io_chunk: int = 8 << 20) -> ShreddedLeaf:
@@ -608,14 +643,10 @@ class MiniBlockReader(ColumnReader):
         raw_parts = []
         for p in range(0, total, io_chunk):
             raw_parts.append(io.read(self.base + p, min(io_chunk, total - p), phase=0))
-        n_chunks = len(offs)
         with tr.step("miniblock.concat"):
             raw = np.concatenate(raw_parts) if raw_parts else np.zeros(0, np.uint8)
-            raws = [
-                raw[offs[ci]: offs[ci] + self.meta["chunks"][ci]["words"] * 8]
-                for ci in range(n_chunks)
-            ]
-        decoded = self._decode_chunks(np.arange(n_chunks), raws, io)
+        # the chunks lie back to back: chunk i ends where chunk i + 1 begins
+        decoded = self._decode_chunks(np.arange(len(offs)), raw, [*offs, total], io)
         with tr.step("miniblock.concat"):
             reps = [d[0] for d in decoded]
             dfs = [d[1] for d in decoded]

@@ -109,13 +109,14 @@ def test_take_records_each_step_and_counts_chunks(date_files):
     assert 0 < chunks < sum(len(f.columns["c"]["leaves"][0]["meta"]["rep_index"])
                             for f in r.fragments)
     assert counts["miniblock.chunks"] == chunks
+    assert counts["miniblock.chunks_staged"] == chunks  # every chunk staged in bulk
     assert counts["miniblock.rows_on_card"] == len(np.unique(rows))
     # each chunk is one span of the store's gather, counted under its route
     gathered = {k: v for k, v in counts.items() if k.startswith("store.gather_spans.")}
     assert set(gathered) <= {"store.gather_spans.strided", "store.gather_spans.sliced"}
     assert sum(gathered.values()) == chunks
-    assert set(counts) - set(gathered) == {"miniblock.chunks", "miniblock.rows_on_card",
-                                           "dataset.sys_us"}
+    assert set(counts) - set(gathered) == {"miniblock.chunks", "miniblock.chunks_staged",
+                                           "miniblock.rows_on_card", "dataset.sys_us"}
     span = next(e for e in tr.events if e["name"] == "dataset.take:c")
     assert span["args"]["sys_us"] == counts["dataset.sys_us"] >= 0
     steps = [e for e in tr.events if e.get("cat") == "step"]
@@ -253,12 +254,12 @@ def test_without_steps_a_profiled_take_goes_to_the_recorder(date_files):
     for name in TAKE_STEPS - {"dataset.locate", "dataset.assemble"}:
         assert totals[name][0] == frags, name
     counts = PROFILER_STEPS.metrics.counter_values()
-    assert counts["miniblock.chunks"] == needed_chunks(r, rows)
+    assert counts["miniblock.chunks"] == counts["miniblock.chunks_staged"] == needed_chunks(r, rows)
     # no copy on the CPU; each chunk one span of the store's gather
     gathered = {k: v for k, v in counts.items() if k.startswith("store.gather_spans.")}
     assert sum(gathered.values()) == counts["miniblock.chunks"]
-    assert set(counts) - set(gathered) == {"miniblock.chunks", "miniblock.rows_on_card",
-                                           "dataset.sys_us"}
+    assert set(counts) - set(gathered) == {"miniblock.chunks", "miniblock.chunks_staged",
+                                           "miniblock.rows_on_card", "dataset.sys_us"}
     assert TAKE_STEPS <= {e.key for e in prof.key_averages()}
     assert r.tracer is NULL_TRACER and NULL_TRACER.events == []
     assert PROFILER_STEPS.events == []
