@@ -11,6 +11,11 @@ drives ``DatasetReader.take`` or ``.scan`` in a closed loop until
 request is timed from the call until its answer is on the host.  A seeded
 sample of the window's answers is compared with the reference once the
 window has closed, the peak device memory read and the reader freed.
+
+A run that the card does not run ends before its window with
+:class:`NoDeviceRoute`: a warm-up request whose decode fell back to the host
+(the port has no device route for the cell's column), or a traced window on
+the card in which the device was never busy.  No result is made for it.
 """
 
 from __future__ import annotations
@@ -33,6 +38,23 @@ from .spans import Spans
 from .traffic import Requests
 
 COLUMN = "c"
+
+
+class NoDeviceRoute(RuntimeError):
+    """The card runs none of the cell's reads: raised before any result."""
+
+
+def seed_streams(seed: int) -> list:
+    """The run's independent streams from ``--seed``: data, traffic,
+    warm-up, sample."""
+    return np.random.SeedSequence(seed % (1 << 64)).spawn(4)
+
+
+def require_device_time(trace: Optional[devtrace.DeviceTrace]) -> None:
+    """Raise :class:`NoDeviceRoute` unless the traced window on the card
+    had the device busy for some time."""
+    if trace is None or not trace.busy_s > 0:
+        raise NoDeviceRoute("the traced window saw no device time")
 
 
 @dataclasses.dataclass
@@ -246,7 +268,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     t_start = time.perf_counter() if t_start is None else t_start
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    data_ss, traffic_ss, warm_ss, sample_ss = np.random.SeedSequence(seed % (1 << 64)).spawn(4)
+    data_ss, traffic_ss, warm_ss, sample_ss = seed_streams(seed)
     phases = {"start_to_setup_s": time.perf_counter() - t_start}
 
     s = time.perf_counter()
@@ -255,8 +277,16 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     reader = open_reader(cell, col, device, phases)
     s = time.perf_counter()
     sample = Sample(cell.traffic["check_requests"], np.random.default_rng(sample_ss))
+    fell0 = dict(ops.fallbacks)
     warm_up(reader, cell.traffic, len(col), np.random.default_rng(warm_ss), sync, sample)
     phases["warmup_s"] = time.perf_counter() - s
+    fell = {k: n - fell0.get(k, 0) for k, n in sorted(ops.fallbacks.items())
+            if n > fell0.get(k, 0)}
+    if fell:
+        del reader
+        gc.collect()
+        raise NoDeviceRoute(", ".join(f"{k} x{n}" for k, n in fell.items())
+                            + " in warm-up, before the window")
 
     requests = Requests(cell.traffic, len(col), np.random.default_rng(traffic_ss))
     fallbacks = lambda: sum(ops.fallbacks.values())  # noqa: E731
@@ -289,6 +319,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    if trace and cuda:
+        require_device_time(record.device)
     counts = judge(col, sample)
     correct, compared = verdict(counts, len(sample.kept))
     info(checked_requests=len(sample.kept),

@@ -22,7 +22,7 @@ def run_control(cell_, seed: int, seconds: float, control: str) -> dict:
 
     from bench import cell, controls, traffic
 
-    data_ss, traffic_ss, warm_ss, sample_ss = np.random.SeedSequence(seed % (1 << 64)).spawn(4)
+    data_ss, traffic_ss, warm_ss, sample_ss = cell.seed_streams(seed)
     col = cell.make_column(cell_.config, np.random.default_rng(data_ss))
     reader = controls.ControlReader(col, cell_.config["fragments"], control)
     sample = cell.Sample(cell_.traffic["check_requests"], np.random.default_rng(sample_ss))

@@ -6,7 +6,9 @@ configuration's ``file``, and a traffic mix, found at
 ``bench/metrics/<name>.py``, or else ``bench/metrics/<name up to its first
 dot>.py`` (so ``copy_ms.take`` and ``copy_ms.scan`` share ``copy_ms.py``),
 and has ``read(record) -> float | None``.  Adding a configuration, a mix or
-a metric adds files and entries; no file here changes.
+a metric adds files and entries; no file here changes.  A configuration's
+file also gives its size in the CPU tests under ``tiny`` (``rows``,
+``fragments``); a run never reads it.
 """
 
 from __future__ import annotations

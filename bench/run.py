@@ -8,8 +8,14 @@ object with ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer ones), ``device``,
 with ``--trace 1`` ``breakdown``, and last ``compared`` (each number
 compared with the reference beside its limit, also the last lines on
-standard error).  Exits non-zero, printing no result, without enough CUDA
-devices, or if JAX or the JAX package got loaded.
+standard error).  Exits non-zero and prints no result:
+
+* 2 without enough CUDA devices;
+* 3 if JAX or the JAX package got loaded;
+* 4 if the card runs none of the cell's reads (``cell.NoDeviceRoute``): a
+  warm-up request fell back to the host, so the window never starts, or a
+  traced window saw no device time.  One line on standard error,
+  ``<workload>: no device route: <what fell back>``, says so.
 """
 
 import time
@@ -17,6 +23,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import ctypes  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -29,6 +36,27 @@ ROOT = Path(__file__).resolve().parents[1]
 CACHE = ROOT / "build" / "bench_cache"
 CACHE_VARS = {"TRITON_CACHE_DIR": "triton", "TORCH_EXTENSIONS_DIR": "torch_extensions",
               "TORCHINDUCTOR_CACHE_DIR": "inductor", "CUDA_CACHE_PATH": "cuda"}
+
+
+# glibc's mallopt parameters, and the values its dynamic rule climbs to on
+# a 64-bit host (the mmap threshold's ceiling, and twice it for the trim
+# threshold).  Fixed from the start, a run's host allocations do not move
+# between the heap and mmap as the rule adapts to what it has freed, so
+# every run of one code starts from one allocator state.
+M_TRIM_THRESHOLD, M_MMAP_THRESHOLD = -1, -3
+MMAP_THRESHOLD_BYTES = 32 << 20
+TRIM_THRESHOLD_BYTES = 64 << 20
+
+
+def pin_allocator() -> None:
+    """Fix glibc's mmap and trim thresholds for this process, before torch
+    or the port allocates; raises where the C library refuses."""
+    mallopt = ctypes.CDLL(None).mallopt
+    mallopt.argtypes, mallopt.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for param, value in ((M_MMAP_THRESHOLD, MMAP_THRESHOLD_BYTES),
+                         (M_TRIM_THRESHOLD, TRIM_THRESHOLD_BYTES)):
+        if mallopt(param, value) != 1:
+            raise RuntimeError(f"mallopt({param}, {value}) was refused")
 
 
 def card_state() -> str:
@@ -48,6 +76,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
+    pin_allocator()
     for var, sub in CACHE_VARS.items():
         os.environ[var] = str(CACHE / sub)
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
@@ -64,8 +93,12 @@ def main(argv=None) -> int:
         return 2
     from bench import cell
 
-    result = cell.run_cell(cell_, args.seed, args.seconds, bool(args.trace),
-                           device="cuda", t_start=T_START)
+    try:
+        result = cell.run_cell(cell_, args.seed, args.seconds, bool(args.trace),
+                               device="cuda", t_start=T_START)
+    except cell.NoDeviceRoute as e:
+        print(f"{args.workload}: no device route: {e}", file=sys.stderr, flush=True)
+        return 4
     found = cell.forbidden_modules()
     if found:
         print(f"loaded in this process: {', '.join(found)}", file=sys.stderr)
